@@ -1,0 +1,92 @@
+"""Public entry points over the port's kernels: the contracts of
+``repro.kernels.ops`` for the KD loss and the fused merge.
+
+- ``kd_distillation_loss`` is a ``torch.autograd.Function`` pairing the
+  forward kernel with the analytic backward kernel (the port's form of the
+  JAX ``custom_vjp``).  Leading axes are flattened into rows; label -1 marks
+  an ignored token; the result is the mean over valid tokens; the teacher
+  gets no gradient.
+- ``fused_merge`` takes an ``(N, ...)`` stack of one model leaf and returns
+  the ``(...)`` float32 decayed weighted mean.
+
+The kernels mask their own ragged edges, so nothing is padded here.  A
+tensor on the CPU runs each kernel's plain version; a CUDA tensor runs the
+kernel (``kernels/kd_softmax_kl.py``, ``kernels/fused_merge.py``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import fused_merge as _fm
+from repro_torch.kernels import kd_softmax_kl as _kd
+
+
+class _KDLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, t, y, tau, alpha):
+        V = s.shape[-1]
+        sf = s.reshape(-1, V).contiguous()
+        tf = t.reshape(-1, V).contiguous()
+        yf = y.reshape(-1)
+        per_tok, stats = _kd.kd_loss_fwd(sf, tf, yf, tau=tau, alpha=alpha)
+        denom = torch.clamp((yf >= 0).sum().to(torch.float32), min=1.0)
+        ctx.save_for_backward(sf, tf, yf, stats, denom)
+        ctx.shape, ctx.tau, ctx.alpha = s.shape, tau, alpha
+        return per_tok.sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        sf, tf, yf, stats, denom = ctx.saved_tensors
+        gf = (g.to(torch.float32) / denom).expand(sf.shape[0]).contiguous()
+        ds = _kd.kd_loss_bwd(sf, tf, yf, stats, gf, tau=ctx.tau,
+                             alpha=ctx.alpha)
+        return ds.reshape(ctx.shape), None, None, None, None
+
+
+def kd_distillation_loss(student_logits, teacher_logits, labels,
+                         tau: float = 2.0, alpha: float = 0.5):
+    """Fused FedSiKD distillation loss (mean over tokens with label >= 0).
+
+        loss = (1-alpha) * CE(student, y)
+             + alpha * tau^2 * KL(softmax(teacher/tau) || softmax(student/tau))
+
+    student_logits, teacher_logits: (..., V) float32/bfloat16/float16 of one
+    shape; labels: (...) int32/int64, -1 = ignore.  Returns a () float32
+    scalar, differentiable in ``student_logits`` only."""
+    return _KDLoss.apply(student_logits, teacher_logits, labels, float(tau),
+                         float(alpha))
+
+
+def kd_distillation_loss_batched(student_logits, teacher_logits, labels, *,
+                                 tau: float = 2.0, alpha: float = 0.5):
+    """Keyword form of ``kd_distillation_loss`` for (B, T, V) logits (or any
+    (..., V)) with (B, T) labels; checks the shapes first."""
+    if student_logits.shape != teacher_logits.shape:
+        raise ValueError(
+            "student/teacher logit shapes differ: "
+            f"{tuple(student_logits.shape)} vs {tuple(teacher_logits.shape)}")
+    if labels.shape != student_logits.shape[:-1]:
+        raise ValueError(
+            f"labels shape {tuple(labels.shape)} != logit leading axes "
+            f"{tuple(student_logits.shape[:-1])}")
+    return kd_distillation_loss(student_logits, teacher_logits, labels, tau,
+                                alpha)
+
+
+def fused_merge(stacked, weights, staleness=None, *, decay: float = 0.0):
+    """Grouped weighted mean with staleness decay, in one kernel pass.
+
+    stacked: (N, ...) — N client copies of one model leaf, any float dtype;
+    weights: (N,) non-negative base weights (at least one positive);
+    staleness: (N,) rounds, or None (all zeros); decay: a in (1 + s)^-a.
+    Returns (...) float32: sum_i w_i(1+s_i)^-a x_i / sum_j w_j(1+s_j)^-a
+    (callers cast back to the leaf dtype)."""
+    N = stacked.shape[0]
+    xf = stacked.reshape(N, -1).contiguous()
+    w = torch.as_tensor(weights, dtype=torch.float32, device=xf.device)
+    s = (torch.zeros(N, dtype=torch.float32, device=xf.device)
+         if staleness is None
+         else torch.as_tensor(staleness, dtype=torch.float32, device=xf.device))
+    out = _fm.fused_merge(xf, w.contiguous(), s.contiguous(),
+                          decay=float(decay))
+    return out.reshape(stacked.shape[1:])

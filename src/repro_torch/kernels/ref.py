@@ -1,0 +1,34 @@
+"""Plain-torch oracles for the port's kernels: the counterparts of
+``repro.kernels.ref.kd_loss_ref`` and ``fused_merge_ref``, written in the
+same formulation (log-softmax KL, one weighted contraction) so the tests
+hold both packages to one definition."""
+from __future__ import annotations
+
+import torch
+
+
+def kd_loss_ref(student_logits, teacher_logits, labels, *, tau: float = 2.0,
+                alpha: float = 0.5):
+    """Per-token (1-a)*CE + a*tau^2*KL(p_T||p_S); labels<0 -> 0."""
+    s = student_logits.float()
+    t = teacher_logits.float()
+    log_ps = torch.log_softmax(s / tau, dim=-1)
+    log_pt = torch.log_softmax(t / tau, dim=-1)
+    kl = torch.sum(torch.exp(log_pt) * (log_pt - log_ps), dim=-1)
+    logz1 = torch.logsumexp(s, dim=-1)
+    picked = torch.gather(s, -1, labels.long().clamp(min=0)[:, None])[:, 0]
+    ce = logz1 - picked
+    valid = (labels >= 0).float()
+    return ((1.0 - alpha) * ce + alpha * tau * tau * kl) * valid
+
+
+def fused_merge_ref(stacked, weights, staleness=None, *, decay: float = 0.0):
+    """stacked: (N, D); weights: (N,); staleness: (N,) or None -> (D,) f32
+    weighted mean under staleness-decayed, renormalised weights."""
+    x = stacked.float()
+    w = torch.as_tensor(weights, dtype=torch.float32, device=x.device)
+    if staleness is not None:
+        s = torch.as_tensor(staleness, dtype=torch.float32, device=x.device)
+        w = w * (1.0 + s) ** (-decay)
+    w = w / w.sum()
+    return torch.einsum("n,nd->d", w, x)
