@@ -7,18 +7,21 @@ GPU.  Run from the repository root with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card, drives the
 fused distill step and the FedSiKD main path (``run_federated`` on the full
-MNIST twin, 40 clients, 3 rounds) on the card, checks that each path went
-through its kernels, times every kernel beside its bound, and prints one
-JSON object per line.  The last line is
+MNIST twin, 40 clients, 3 rounds) on the card on both engines (the loop
+engine, then the packed engine with all 40 clients as lanes of one stacked
+program), checks that each path went through its kernels, holds the
+packed engine's per-round accuracy and losses to the loop engine's, times every
+kernel beside its bound, and prints one JSON object per line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 any failed phase raises, so the script exits non-zero and never prints it.
 It imports nothing of JAX and nothing of the JAX package.
 
     python3 chip_smoke.py --profile
 
-profiles one steady round of the same main path instead (host wall time,
-device busy time and idle share, launches, the kernels that take the
-device's time) and prints it as one JSON line; it checks nothing.
+profiles one steady round of the same main path on each engine instead
+(host wall time, device busy time and idle share, launches, the kernels
+that take the device's time) and prints each as one JSON line; it checks
+nothing.
 """
 from __future__ import annotations
 
@@ -42,6 +45,15 @@ F32_FLOPS_PER_S = 67e12
 KD_FWD_OPS_PER_ELEM = 16
 KD_BWD_OPS_PER_ELEM = 14
 ROUNDS = 3
+PACKED_LANES = 40                      # pack=40: one card hosts the cohort
+BATCH = 64
+PATH_ROWS = PACKED_LANES * BATCH       # the KD kernels' rows on the packed path
+# packed-vs-loop bound on every per-round loss (eval, teacher, student): the
+# engines run the same clusters, init and batches, so only rounding differs
+# (measured gaps up to 1.7e-3 relative on the CPU, tests/test_torch_sharded.py)
+LOSS_RTOL_TO_LOOP = 1e-2
+# the clustering step's statistics matrix: 40 clients x 3 * 784 features
+KM_N, KM_F = 40, 3 * 784
 DEV = "cuda"
 
 
@@ -135,6 +147,21 @@ def _kd_inputs(T, V, dtype, seed):
     return (s.to(DEV, dtype), t.to(DEV, dtype), torch.from_numpy(y).to(DEV))
 
 
+def _lane_grads(y, seed):
+    """Per-row upstream gradients of the packed path's form: rows in lanes
+    of ``BATCH``, each row ``w[lane] / valid_rows[lane]`` with a random
+    positive ``w`` (the path's ``w`` is all ones)."""
+    import numpy as np
+    import torch
+    T = y.shape[0]
+    lanes = -(-T // BATCH)
+    w = np.random.default_rng(seed).random(lanes).astype(np.float32) + 0.5
+    lane = torch.arange(T, device=DEV) // BATCH
+    valid = torch.zeros(lanes, device=DEV).index_add_(
+        0, lane, (y >= 0).float()).clamp(min=1.0)
+    return (torch.from_numpy(w).to(DEV) / valid)[lane].contiguous()
+
+
 def _merge_inputs(N, D, dtype, seed, stale: bool):
     import numpy as np
     import torch
@@ -145,13 +172,34 @@ def _merge_inputs(N, D, dtype, seed, stale: bool):
     return (x.to(DEV, dtype), w.to(DEV), torch.from_numpy(s).to(DEV))
 
 
-def phase_kernel_checks():
+def _kmeans_inputs(N, K, seed):
+    """Standard-normal points and centroids: at F = 2352 the gaps between a
+    point's K distances are ~100 while the rounding is ~1e-3, so no
+    assignment sits on a near-tie."""
+    import numpy as np
     import torch
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.standard_normal((N, KM_F)).astype(np.float32))
+    c = torch.from_numpy(r.standard_normal((K, KM_F)).astype(np.float32))
+    return x.to(DEV), c.to(DEV)
+
+
+def phase_kernel_checks():
+    """Every kernel against its plain version on the card.  The KD rows of
+    the kernels line carry the error at the packed path's shape: (2560, 10)
+    rows and the per-lane wrapper ``ops.kd_distillation_loss_lanes`` on
+    (40, 64, 10), held against the plain per-lane loss and its gradient."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distill import distillation_loss
     from repro_torch.kernels import fused_merge as fm
     from repro_torch.kernels import kd_softmax_kl as kd
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import ops
     errs = {"kd_softmax_kl_fwd": 0.0, "kd_softmax_kl_bwd": 0.0,
             "fused_merge": 0.0}
     for T, V, dtype, tol, seed in ((64, 10, torch.float32, 2e-5, 0),
+                                   (PATH_ROWS, 10, torch.float32, 2e-5, 25),
                                    (2048, 32000, torch.float32, 2e-5, 1),
                                    (2048, 32000, torch.bfloat16, 5e-2, 2)):
         s, t, y = _kd_inputs(T, V, dtype, seed)
@@ -159,20 +207,40 @@ def phase_kernel_checks():
         loss_p, stats_p = kd.kd_loss_fwd_plain(s, t, y, tau=2.0, alpha=0.5)
         torch.cuda.synchronize()
         tag = f"kd_fwd T={T} V={V} {str(dtype)[6:]}"
-        e = max(check_close(tag + " loss", loss, loss_p, tol, tol * 10),
-                check_close(tag + " stats", stats, stats_p, tol, tol * 10))
-        errs["kd_softmax_kl_fwd"] = max(errs["kd_softmax_kl_fwd"], e)
-        g = torch.ones(s.shape[0], dtype=torch.float32, device=DEV)
+        e_fwd = max(check_close(tag + " loss", loss, loss_p, tol, tol * 10),
+                    check_close(tag + " stats", stats, stats_p, tol, tol * 10))
+        g = _lane_grads(y, seed)
         ds = kd.kd_loss_bwd(s, t, y, stats, g, tau=2.0, alpha=0.5)
         ds_p = kd.kd_loss_bwd_plain(s, t, y, stats_p, g, tau=2.0, alpha=0.5)
         torch.cuda.synchronize()
-        if dtype == torch.float32:
-            e = check_close(f"kd_bwd T={T} V={V} float32 ds", ds, ds_p,
-                            1e-5, 1e-5)
-        else:
-            e = check_close(f"kd_bwd T={T} V={V} bfloat16 ds", ds, ds_p,
-                            5e-2, 5e-2)
-        errs["kd_softmax_kl_bwd"] = max(errs["kd_softmax_kl_bwd"], e)
+        btol = 1e-5 if dtype == torch.float32 else 5e-2
+        e_bwd = check_close(f"kd_bwd T={T} V={V} {str(dtype)[6:]} ds, "
+                            "per-lane g", ds, ds_p, btol, btol)
+        if T == PATH_ROWS:
+            errs["kd_softmax_kl_fwd"] = max(errs["kd_softmax_kl_fwd"], e_fwd)
+            errs["kd_softmax_kl_bwd"] = max(errs["kd_softmax_kl_bwd"], e_bwd)
+    s, t, y = _kd_inputs(PATH_ROWS, 10, torch.float32, 26)
+    shape = (PACKED_LANES, BATCH, 10)
+    s, t, y = s.reshape(shape), t.reshape(shape), y.reshape(shape[:2])
+    w = torch.from_numpy(np.random.default_rng(27).random(PACKED_LANES)
+                         .astype(np.float32) + 0.5).to(DEV)
+    sg = s.clone().requires_grad_(True)
+    lanes = ops.kd_distillation_loss_lanes(sg, t, y, tau=2.0, alpha=0.5)
+    (ds,) = torch.autograd.grad((lanes * w).sum(), sg)
+    sp = s.clone().requires_grad_(True)
+    lanes_p = torch.stack([distillation_loss(sp[i], t[i], y[i],
+                                             temperature=2.0, alpha=0.5)[0]
+                           for i in range(PACKED_LANES)])
+    (ds_p,) = torch.autograd.grad((lanes_p * w).sum(), sp)
+    torch.cuda.synchronize()
+    tag = f"kd_distillation_loss_lanes S={PACKED_LANES} B={BATCH} V=10"
+    errs["kd_softmax_kl_fwd"] = max(
+        errs["kd_softmax_kl_fwd"],
+        check_close(tag + " per-lane loss", lanes.detach(), lanes_p.detach(),
+                    2e-5, 2e-5))
+    errs["kd_softmax_kl_bwd"] = max(
+        errs["kd_softmax_kl_bwd"],
+        check_close(tag + " grad", ds, ds_p, 1e-5, 1e-5))
     for N, D, dtype, decay, stale, tol, seed in (
             (40, 9216, torch.float32, 0.0, False, 1e-5, 3),
             (40, 9216, torch.float32, 0.5, True, 1e-5, 4),
@@ -185,6 +253,22 @@ def phase_kernel_checks():
         e = check_close(f"fused_merge N={N} D={D} {str(dtype)[6:]} "
                         f"decay={decay}", out, out_p, tol, tol)
         errs["fused_merge"] = max(errs["fused_merge"], e)
+    errs["kmeans_assign"] = 0.0
+    for N, K, seed in [(KM_N, k, 7 + k) for k in (2, 3, 4, 5)] + [
+            (16384, 8, 12)]:
+        x, c = _kmeans_inputs(N, K, seed)
+        a, d = km.kmeans_assign(x, c)
+        a_p, d_p = km.kmeans_assign_plain(x, c)
+        torch.cuda.synchronize()
+        differ = int((a != a_p).sum())
+        emit({"check": f"kmeans_assign N={N} F={KM_F} K={K} assignments",
+              "differing": differ, "ok": differ == 0})
+        if differ:
+            raise RuntimeError(f"kmeans_assign N={N} K={K}: {differ} "
+                               "assignments differ from the plain version")
+        e = check_close(f"kmeans_assign N={N} F={KM_F} K={K} dist", d, d_p,
+                        1e-4, 1e-4)
+        errs["kmeans_assign"] = max(errs["kmeans_assign"], e)
     return errs
 
 
@@ -254,14 +338,94 @@ def phase_main_path(ds):
     emit({"phase": "main_path", "config": "fedsikd loop mnist 40 clients "
           f"alpha=0.5 batch=64 warmup=3 rounds={ROUNDS}",
           "acc": h["acc"], "loss": h["loss"],
+          "teacher_loss": h["teacher_loss"],
+          "student_loss": h["student_loss"],
           "round_seconds": h["round_seconds"],
           "num_clusters": h["num_clusters"], "participants":
           h["participants"], "seconds_total": total, "launches": counts})
     if counts["fused_merge"] != ROUNDS * leaves:
         raise RuntimeError(f"expected {ROUNDS} x {leaves} fused-merge "
                            f"launches, counted {counts['fused_merge']}")
-    if not all(math.isfinite(v) for v in h["acc"] + h["loss"]):
-        raise RuntimeError(f"non-finite eval metrics: {h['acc']} {h['loss']}")
+    want_km = expected_kmeans_launches(cfg, cfg.num_clients)
+    if counts["kmeans_assign"] != want_km:
+        raise RuntimeError(f"expected {want_km} kmeans_assign launches in "
+                           f"the clustering step, counted "
+                           f"{counts['kmeans_assign']}")
+    vals = h["acc"] + h["loss"] + h["teacher_loss"] + h["student_loss"]
+    if not all(math.isfinite(v) for v in vals):
+        raise RuntimeError(f"non-finite loop-path metrics: {vals}")
+    return counts, h
+
+
+def expected_kmeans_launches(cfg, n_clients: int) -> int:
+    """Assignment launches of the clustering step: every Lloyd E-step plus
+    the final assignment (``iters + 1``) for each candidate K of
+    ``select_k`` and for the final ``kmeans``."""
+    iters = 50                          # the default of select_k and kmeans
+    if cfg.num_clusters is not None:
+        return iters + 1
+    lo, hi = cfg.k_range
+    n_k = len(range(lo, min(hi, n_clients - 1) + 1))
+    return (n_k + 1) * (iters + 1)
+
+
+# ----------------------------------------------------------- phase 4b
+def phase_packed_path(ds, loop_h):
+    """The packed engine at the same configuration: every round's 40
+    clients are lanes of one stacked program, so each student step is ONE
+    KD forward and ONE KD backward launch for all lanes."""
+    from repro_torch.data.pipeline import make_client_shards
+    from repro_torch.fed.rounds import FedConfig, run_federated
+    from repro_torch.fed.sharded import client_step_counts
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    cfg = FedConfig(algorithm="fedsikd", engine="sharded", pack=PACKED_LANES,
+                    rounds=ROUNDS)
+    shards = make_client_shards(ds, cfg.num_clients, cfg.alpha, seed=cfg.seed)
+    budgets = client_step_counts(shards, cfg.batch_size, cfg.local_epochs)
+    reset_launches()
+    t0 = time.perf_counter()
+    h = run_federated(ds, cfg, device=DEV)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    want_kd = ROUNDS * int(budgets.max())      # full participation
+    want_km = expected_kmeans_launches(cfg, cfg.num_clients)
+    gaps = [abs(a - b) for a, b in zip(h["acc"], loop_h["acc"])]
+    loss_gaps = {k: [abs(a - b) / abs(b) for a, b in zip(h[k], loop_h[k])]
+                 for k in ("loss", "teacher_loss", "student_loss")}
+    emit({"phase": "packed_path", "config": "fedsikd sharded pack=40 mnist "
+          f"40 clients alpha=0.5 batch=64 warmup=3 rounds={ROUNDS}",
+          "acc": h["acc"], "loss": h["loss"],
+          "teacher_loss": h["teacher_loss"],
+          "student_loss": h["student_loss"],
+          "round_seconds": h["round_seconds"],
+          "loop_round_seconds": loop_h["round_seconds"],
+          "num_clusters": h["num_clusters"], "participants":
+          h["participants"], "seconds_total": total,
+          "student_steps_per_round": int(budgets.max()),
+          "launches": counts, "expected_kd_launches": want_kd,
+          "expected_kmeans_launches": want_km,
+          "acc_gap_to_loop": gaps, "loss_rel_gap_to_loop": loss_gaps})
+    for name in ("kd_softmax_kl_fwd", "kd_softmax_kl_bwd"):
+        if counts[name] != want_kd:
+            raise RuntimeError(f"expected {want_kd} {name} launches (the "
+                               f"longest student budget x {ROUNDS} rounds), "
+                               f"counted {counts[name]}")
+    if counts["kmeans_assign"] != want_km:
+        raise RuntimeError(f"expected {want_km} kmeans_assign launches in "
+                           f"the clustering step, counted "
+                           f"{counts['kmeans_assign']}")
+    vals = h["acc"] + h["loss"] + h["teacher_loss"] + h["student_loss"]
+    if not all(math.isfinite(v) for v in vals):
+        raise RuntimeError(f"non-finite packed-path metrics: {vals}")
+    if max(gaps) > 0.03:
+        raise RuntimeError(f"packed accuracy {h['acc']} is more than 3 "
+                           f"points from the loop engine's {loop_h['acc']}")
+    for k, g in loss_gaps.items():
+        if max(g) > LOSS_RTOL_TO_LOOP:
+            raise RuntimeError(f"packed {k} {h[k]} is more than "
+                               f"{LOSS_RTOL_TO_LOOP} relative from the loop "
+                               f"engine's {loop_h[k]}")
     return counts
 
 
@@ -312,9 +476,32 @@ def _merge_round_timing():
     return out
 
 
+def _kmeans_timing(N, K, seed):
+    """One assignment call at (N, 2352, K) beside its bound, the plain
+    version and ``torch.cdist(x, c).min(1)`` (the library column)."""
+    import torch
+    from repro_torch.kernels import kmeans_assign as km
+    x, c = _kmeans_inputs(N, K, seed)
+    out = {"ms": time_ms(lambda: km.kmeans_assign(x, c)),
+           "plain_ms": time_ms(lambda: km.kmeans_assign_plain(x, c)),
+           "library_ms": time_ms(lambda: torch.cdist(x, c).min(1))}
+    nbytes = (N * KM_F + K * KM_F) * 4 + N * 8
+    nops = 2 * N * K * KM_F + 2 * N * KM_F + 2 * K * KM_F
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops)
+    return out
+
+
 def phase_timing(errs, path_counts, smi):
     import torch
-    kd_fwd, kd_bwd = _kd_timing(64, 10, torch.float32, 20)
+    rows_path = PATH_ROWS
+    kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
+    f64, b64 = _kd_timing(64, 10, torch.float32, 22)
+    emit({"timing": "kd T=64 V=10 float32 (the loop engine's step)",
+          "fwd": f64, "bwd": b64, "card": smi})
+    km_path = _kmeans_timing(KM_N, 5, 23)
+    km_big = _kmeans_timing(16384, 8, 24)
+    emit({"timing": f"kmeans_assign N=16384 F={KM_F} K=8", **km_big,
+          "card": smi})
     merge = _merge_round_timing()
     for dtype in (torch.float32, torch.bfloat16):
         f, b = _kd_timing(2048, 32000, dtype, 21)
@@ -327,20 +514,25 @@ def phase_timing(errs, path_counts, smi):
         {"name": "kd_softmax_kl_fwd", "route": "cuda",
          "source": src + "kd_softmax_kl.cu",
          "replaces": "src/repro/kernels/kd_softmax_kl.py:33",
-         "shape": "T=64 V=10 float32, one call", **kd_fwd,
-         "library_ms": None, "path": "fused distill step"},
+         "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
+         **kd_fwd, "library_ms": None, "path": "run_federated packed"},
         {"name": "kd_softmax_kl_bwd", "route": "cuda",
          "source": src + "kd_softmax_kl.cu",
          "replaces": "src/repro/kernels/kd_softmax_kl.py:118",
-         "shape": "T=64 V=10 float32, one call", **kd_bwd,
-         "library_ms": None, "path": "fused distill step"},
+         "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
+         **kd_bwd, "library_ms": None, "path": "run_federated packed"},
         {"name": "fused_merge", "route": "cuda",
          "source": src + "fused_merge.cu",
          "replaces": "src/repro/kernels/fused_merge.py:30",
          "shape": "N=40, the 10 student leaves of one round",
          **{k: merge[k] for k in ("ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")},
-         "path": "run_federated"},
+         "path": "run_federated loop"},
+        {"name": "kmeans_assign", "route": "cuda",
+         "source": src + "kmeans_assign.cu",
+         "replaces": "src/repro/kernels/kmeans_assign.py:16",
+         "shape": f"N={KM_N} F={KM_F} K=5 float32, one call", **km_path,
+         "path": "run_federated packed (clustering step)"},
     ]
     for r in rows:
         r["launches"] = path_counts[r["name"]]
@@ -349,7 +541,8 @@ def phase_timing(errs, path_counts, smi):
 
 
 # ---------------------------------------------------------- --profile mode
-PORT_KERNELS = ("kd_fwd_kernel", "kd_bwd_kernel", "fused_merge_kernel")
+PORT_KERNELS = ("kd_fwd_kernel", "kd_bwd_kernel", "fused_merge_kernel",
+                "kmeans_assign_kernel")
 # substrings that sort device kernels into groups, tried in order
 KERNEL_GROUPS = (("port", PORT_KERNELS),
                  ("memcpy/memset", ("Memcpy", "Memset")),
@@ -361,13 +554,32 @@ KERNEL_GROUPS = (("port", PORT_KERNELS),
                  ("elementwise", ("elementwise", "Functor")))
 
 
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur = 0.0, None
+    for start, end in sorted(spans):
+        if cur is None or start > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return total + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
 def _device_summary(prof, wall_s):
     """Device busy time, idle share, launches, time by kernel group, the
-    top kernels and the port's own kernels from one profiler window."""
+    top kernels and the port's own kernels from one profiler window.  The
+    busy time is the union of the device events' intervals (time with at
+    least one kernel or copy running); the plain sum of their durations is
+    kept beside it, since it counts overlapping kernels twice."""
     from torch.autograd import DeviceType
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in dev)
+    kernel_sum_us = sum(e.self_device_time_total for e in dev)
+    busy_us = _union_us((e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
     groups = {}
     for e in dev:
         name = next((g for g, keys in KERNEL_GROUPS
@@ -376,6 +588,7 @@ def _device_summary(prof, wall_s):
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
     return {
         "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_kernel_ms_sum": kernel_sum_us / 1e3,
         "device_idle_share": 1.0 - busy_us / (wall_s * 1e6),
         "host_kernel_launches": sum(
             e.count for e in events
@@ -395,7 +608,9 @@ def _device_summary(prof, wall_s):
 def phase_profile(ds, smi):
     """Under ``torch.profiler``: one steady round of the main path (round 2,
     after the warm-up and a first round) with its training steps counted,
-    then one epoch of the fused distill step on client 0's shard.  Each
+    then one epoch of the fused distill step on client 0's shard, then the
+    clustering step, then one steady round of the packed engine (its steps
+    are the longest teacher and student budgets of the round).  Each
     window reports host wall time, the device's busy time and idle share,
     the launches, device time by kernel group and the port's kernels'
     device time per launch."""
@@ -451,6 +666,49 @@ def phase_profile(ds, smi):
     emit({"phase": "profile", "window": "fused distill epoch, client 0",
           "card": smi, "steps": j + 1, **_device_summary(prof, t1 - t0)})
 
+    # the clustering step of the same configuration: select_k + kmeans on
+    # the standardised statistics of the 40 clients
+    from repro_torch.core import kmeans, stats
+    from repro_torch.fed.algorithms.clustered_kd import stat_features
+    feats = stats.standardize(stat_features(shards, cfg, device=DEV))
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        k, _ = kmeans.select_k(cfg.seed + 17, feats, *cfg.k_range)
+        kmeans.kmeans(cfg.seed + 17, feats, k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    emit({"phase": "profile", "window": "clustering step (select_k + kmeans)",
+          "card": smi, "features": list(feats.shape), "k": k,
+          **_device_summary(prof, t1 - t0)})
+
+    # the packed engine: one steady round of the same configuration
+    cfg = FedConfig(algorithm="fedsikd", engine="sharded",
+                    pack=PACKED_LANES, rounds=2)
+    alg = make_algorithm(cfg)
+    alg.setup(ds, shards, cfg, cfg.seed, device=torch.device(DEV))
+    alg.warmup()
+    alg.run_round(alg.scheduler.plan(1), 1)
+    alg.eval()
+    torch.cuda.synchronize()
+    plan = alg.scheduler.plan(2)
+    steps = {"student": int(plan.steps_for(alg.s_steps_all).max()),
+             "teacher": int(plan.steps_for(alg.t_steps_all).max())}
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        alg.run_round(plan, 2)
+        t1 = time.perf_counter()
+        alg.eval()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    summary = _device_summary(prof, t2 - t0)
+    emit({"phase": "profile", "window": "packed engine, round 2",
+          "card": smi, "lanes": alg.S, "train_merge_ms": (t1 - t0) * 1e3,
+          "eval_ms": (t2 - t1) * 1e3, "steps": steps,
+          "host_ms_per_step": (t1 - t0) * 1e3 / sum(steps.values()),
+          "launches_per_step": summary["host_kernel_launches"]
+          / sum(steps.values()), **summary})
+
 
 def main() -> int:
     import torch
@@ -472,15 +730,21 @@ def main() -> int:
     errs = phase_kernel_checks()
     ds = load_dataset("mnist")
     kd_counts = phase_fused_distill(ds)
-    merge_counts = phase_main_path(ds)
+    merge_counts, loop_h = phase_main_path(ds)
+    packed_counts = phase_packed_path(ds, loop_h)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
-                    ("fused_merge", merge_counts)):
+                    ("fused_merge", merge_counts),
+                    ("kd_softmax_kl_fwd", packed_counts),
+                    ("kd_softmax_kl_bwd", packed_counts),
+                    ("kmeans_assign", merge_counts),
+                    ("kmeans_assign", packed_counts)):
         if c[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")
-    path_counts = {"kd_softmax_kl_fwd": kd_counts["kd_softmax_kl_fwd"],
-                   "kd_softmax_kl_bwd": kd_counts["kd_softmax_kl_bwd"],
-                   "fused_merge": merge_counts["fused_merge"]}
+    path_counts = {"kd_softmax_kl_fwd": packed_counts["kd_softmax_kl_fwd"],
+                   "kd_softmax_kl_bwd": packed_counts["kd_softmax_kl_bwd"],
+                   "fused_merge": merge_counts["fused_merge"],
+                   "kmeans_assign": packed_counts["kmeans_assign"]}
     phase_timing(errs, path_counts, smi)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

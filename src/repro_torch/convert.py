@@ -10,6 +10,9 @@
   activations, in the JAX (NHWC) order.
 - Adam states: the moments convert like the params, the count becomes an
   int32 scalar tensor.
+- Stacks of models (``stacked=True``: the packed engine's (K, ...) teacher
+  stacks and their Adam states) keep their leading axis; the layout change
+  applies to the axes after it.
 
 The round trip is exact: only transposes and copies, no arithmetic.
 """
@@ -32,32 +35,41 @@ def _flatten(tree, prefix=""):
         yield prefix[:-1], np.asarray(tree)
 
 
-def _to_torch_layout(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 4:                  # HWIO -> OIHW
-        return a.transpose(3, 2, 0, 1)
-    if a.ndim == 3:                  # WIO -> OIW
-        return a.transpose(2, 1, 0)
+def _permute(a: np.ndarray, lead: int, order: tuple) -> np.ndarray:
+    """Permute the axes after the ``lead`` leading (stack) axes."""
+    return a.transpose(*range(lead), *(lead + i for i in order))
+
+
+def _to_torch_layout(a: np.ndarray, lead: int = 0) -> np.ndarray:
+    if a.ndim - lead == 4:           # HWIO -> OIHW
+        return _permute(a, lead, (3, 2, 0, 1))
+    if a.ndim - lead == 3:           # WIO -> OIW
+        return _permute(a, lead, (2, 1, 0))
     return a
 
 
-def _to_jax_layout(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 4:                  # OIHW -> HWIO
-        return a.transpose(2, 3, 1, 0)
-    if a.ndim == 3:                  # OIW -> WIO
-        return a.transpose(2, 1, 0)
+def _to_jax_layout(a: np.ndarray, lead: int = 0) -> np.ndarray:
+    if a.ndim - lead == 4:           # OIHW -> HWIO
+        return _permute(a, lead, (2, 3, 1, 0))
+    if a.ndim - lead == 3:           # OIW -> WIO
+        return _permute(a, lead, (2, 1, 0))
     return a
 
 
-def params_from_jax(tree, *, device="cpu") -> dict:
-    """JAX param pytree -> ``{dotted key: tensor}`` in the port's layout."""
-    return {k: torch.from_numpy(np.array(_to_torch_layout(a), order="C"))
-            .to(device)
+def params_from_jax(tree, *, device="cpu", stacked: bool = False) -> dict:
+    """JAX param pytree -> ``{dotted key: tensor}`` in the port's layout.
+    ``stacked=True`` takes a stack of models (every leaf with a leading
+    (K,) axis, as the packed engine's teacher stack) and keeps that axis."""
+    lead = int(stacked)
+    return {k: torch.from_numpy(np.array(_to_torch_layout(a, lead),
+                                         order="C")).to(device)
             for k, a in _flatten(tree)}
 
 
-def params_to_jax(params: dict):
+def params_to_jax(params: dict, *, stacked: bool = False):
     """The inverse of ``params_from_jax``: a nested dict/list pytree of
     numpy arrays in the JAX layout."""
+    lead = int(stacked)
     root: dict = {}
     for key, t in params.items():
         parts = key.split(".")
@@ -65,7 +77,7 @@ def params_to_jax(params: dict):
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.ascontiguousarray(
-            _to_jax_layout(t.detach().cpu().numpy()))
+            _to_jax_layout(t.detach().cpu().numpy(), lead))
     return _lists(root)
 
 
@@ -79,17 +91,21 @@ def _lists(node):
     return node
 
 
-def adam_from_jax(state, *, device="cpu") -> AdamState:
-    """A JAX ``AdamState`` (or any ``(mu, nu, count)``) -> the port's."""
+def adam_from_jax(state, *, device="cpu", stacked: bool = False) -> AdamState:
+    """A JAX ``AdamState`` (or any ``(mu, nu, count)``) -> the port's.  With
+    ``stacked=True`` the moments carry a leading (K,) axis and the count is
+    (K,), one per stacked model."""
     mu, nu, count = state
-    return AdamState(params_from_jax(mu, device=device),
-                     params_from_jax(nu, device=device),
-                     torch.tensor(int(np.asarray(count)), dtype=torch.int32,
-                                  device=device))
+    return AdamState(params_from_jax(mu, device=device, stacked=stacked),
+                     params_from_jax(nu, device=device, stacked=stacked),
+                     torch.from_numpy(np.array(count, dtype=np.int32))
+                     .to(device))
 
 
-def adam_to_jax(state: AdamState) -> tuple:
+def adam_to_jax(state: AdamState, *, stacked: bool = False) -> tuple:
     """The port's ``AdamState`` -> ``(mu, nu, count)`` in the JAX layout
     (``repro.optim.optimizers.AdamState(*result)`` rebuilds the JAX one)."""
-    return (params_to_jax(state.mu), params_to_jax(state.nu),
-            np.int32(int(state.count)))
+    count = state.count.detach().cpu().numpy().astype(np.int32)
+    return (params_to_jax(state.mu, stacked=stacked),
+            params_to_jax(state.nu, stacked=stacked),
+            count if stacked else np.int32(count))

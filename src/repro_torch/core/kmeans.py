@@ -11,7 +11,10 @@ seeding draws from a CPU ``torch.Generator`` seeded from an integer (the
 JAX key's place; ``select_k`` folds each candidate K into it as JAX does),
 so seeds — and with them clusters — can differ from the JAX package's on
 the same seed.  Lloyd from given centroids (``kmeans_warm``) and the
-metrics on given assignments are deterministic and match it.
+metrics on given assignments are deterministic and match it.  Lloyd's
+assignment steps run the ``kmeans_assign`` kernel; the seeding and the
+metrics keep ``_sq_dists`` (seeding samples from the distances, and a
+float-level change there could flip a sampled seed).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import rng
+from repro_torch.kernels import ops
 
 _EPS = 1e-9
 
@@ -63,24 +67,23 @@ def _plus_plus_init(gen: torch.Generator, x, k: int, k_cap: int):
 
 def _lloyd(x, cents0, k: int, k_cap: int, iters: int) -> KMeansResult:
     """Lloyd's algorithm over the first ``k`` of ``k_cap`` centroid slots
-    (invalid slots never win an assignment)."""
+    (invalid slots never win an assignment).
+
+    Every E-step and the final assignment go through ``ops.kmeans_assign``
+    (the CUDA kernel for a CUDA tensor) on the first ``k`` centroids only:
+    the argmin over them is the JAX package's argmin over all ``k_cap``
+    slots with the rest masked to +inf."""
     kmask = torch.arange(k_cap, device=x.device) < k
-
-    def masked_dists(cents):
-        return torch.where(kmask[None, :], _sq_dists(x, cents), torch.inf)
-
     cents = cents0
     for _ in range(iters):
-        assign = torch.argmin(masked_dists(cents), dim=1)
-        onehot = F.one_hot(assign, k_cap).to(x.dtype)
+        assign, _ = ops.kmeans_assign(x, cents[:k])
+        onehot = F.one_hot(assign.long(), k_cap).to(x.dtype)
         counts = onehot.sum(dim=0)
         new = (onehot.T @ x) / torch.clamp(counts, min=1.0)[:, None]
         # keep the old centroid for empty clusters
         cents = torch.where(((counts > 0) & kmask)[:, None], new, cents)
-    d = masked_dists(cents)
-    assign = torch.argmin(d, dim=1)
-    inertia = torch.gather(d, 1, assign[:, None]).sum()
-    return KMeansResult(cents, assign.to(torch.int32), inertia)
+    assign, dist = ops.kmeans_assign(x, cents[:k])
+    return KMeansResult(cents, assign, dist.sum())
 
 
 def kmeans(seed: int, x, k: int, iters: int = 50) -> KMeansResult:

@@ -7,6 +7,8 @@ parameterized by an algorithm strategy:
 1. ``setup(ds, shards, cfg, seed, device=...)`` — clustering, models, steps
    and the ``RoundScheduler``; must populate ``scheduler`` and ``labels``.
 2. ``warmup()`` — pre-round establishment work (FedSiKD's teacher warm-up).
+   Before each round but the last the driver calls ``prefetch`` with the
+   next round's plan.
 3. ``run_round(plan, rnd)`` — local updates + aggregation for the plan's
    participants; returns per-round metrics.  An all-idle plan is a no-op.
 4. ``eval()`` — (accuracy, loss) of the current global model on the test set.
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import rng
 from repro_torch.data.pipeline import ClientShard
@@ -47,6 +50,10 @@ class Algorithm:
             return None
         return min(cfg.clients_per_round, int((np.asarray(labels) >= 0).sum()))
 
+    def prefetch(self, plan: Optional[RoundPlan]) -> None:
+        """Start staging ``plan``'s data ahead of its round (packed engine
+        only; the loop engine reads host batches per step)."""
+
     def run_round(self, plan: RoundPlan, rnd: int) -> dict:
         raise NotImplementedError
 
@@ -62,22 +69,25 @@ class Algorithm:
 def local_epochs(shard: ClientShard, params, opt_state, key: int, cfg,
                  *, step_fn, extra=()):
     """``cfg.local_epochs`` of sequential local steps on one client's shard;
-    step ``j`` draws from the stream ``fold_seed(key, j)``."""
-    step = 0
+    step ``j`` draws from the stream ``fold_seed(key, j)``.  Returns the
+    params, the optimizer state and the mean step loss (a device scalar)."""
+    losses = []
     for epoch in range(cfg.local_epochs):
         for x, y in shard.batches(cfg.batch_size, epoch=epoch, seed=cfg.seed):
-            params, opt_state, _ = step_fn(params, opt_state,
-                                           {"x": x, "y": y},
-                                           rng.fold_seed(key, step), *extra)
-            step += 1
-    return params, opt_state
+            params, opt_state, loss = step_fn(params, opt_state,
+                                              {"x": x, "y": y},
+                                              rng.fold_seed(key, len(losses)),
+                                              *extra)
+            losses.append(loss)
+    return params, opt_state, _mean(losses, params)
 
 
 def cluster_epochs(members: list[ClientShard], params, opt_state, key: int,
                    cfg, *, step_fn, epochs: int):
     """Teacher pass over the union of cluster members' shards (Alg.1 l.12):
     pooled and shuffled globally; a single member is used as it is, which
-    keeps its batch order identical to the JAX package's."""
+    keeps its batch order identical to the JAX package's.  Returns what
+    ``local_epochs`` returns."""
     if len(members) == 1:
         pooled = members[0]
     else:
@@ -85,14 +95,21 @@ def cluster_epochs(members: list[ClientShard], params, opt_state, key: int,
             client_id=-1,
             x=np.concatenate([sh.x for sh in members]),
             y=np.concatenate([sh.y for sh in members]))
-    step = 0
+    losses = []
     for epoch in range(epochs):
         for x, y in pooled.batches(cfg.batch_size, epoch=epoch, seed=cfg.seed):
-            params, opt_state, _ = step_fn(params, opt_state,
-                                           {"x": x, "y": y},
-                                           rng.fold_seed(key, step))
-            step += 1
-    return params, opt_state
+            params, opt_state, loss = step_fn(params, opt_state,
+                                              {"x": x, "y": y},
+                                              rng.fold_seed(key, len(losses)))
+            losses.append(loss)
+    return params, opt_state, _mean(losses, params)
+
+
+def _mean(losses: list, params: dict):
+    """Mean of the step losses, on the device (0 for no steps)."""
+    if not losses:
+        return torch.zeros((), device=next(iter(params.values())).device)
+    return torch.stack(losses).mean()
 
 
 def tree_copy(params: dict) -> dict:

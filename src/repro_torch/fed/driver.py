@@ -49,6 +49,10 @@ class RoundDriver:
         for rnd in range(1, cfg.rounds + 1):
             t0 = time.perf_counter()
             plan = alg.scheduler.plan(rnd)
+            if cfg.prefetch and rnd < cfg.rounds:
+                # stage round N+1's slot data while round N computes (plans
+                # are pure functions of (seed, round))
+                alg.prefetch(alg.scheduler.plan(rnd + 1))
             metrics = alg.run_round(plan, rnd)
             self._append_metrics(history, metrics)
             history["participants"].append(int(plan.active.sum()))

@@ -2,10 +2,11 @@
 ``repro.fed.rounds.FedConfig`` with every field and every validation) and
 ``run_federated`` (one call = one ``RoundDriver`` run on a torch device).
 
-This slice ports the loop engine for the clustered-KD algorithms
-(``fedsikd`` and the ``random`` ablation).  Every knob the slice does not
-port raises ``NotImplementedError`` naming its ROADMAP.md item, before any
-work starts (``unported_knobs``).
+The port runs the clustered-KD algorithms (``fedsikd`` and the ``random``
+ablation) on the loop engine and, one wave of synchronous rounds, on the
+packed engine (``engine="sharded"``).  Every knob it does not port raises
+``NotImplementedError`` naming its ROADMAP.md item, before any work starts
+(``unported_knobs``).
 """
 from __future__ import annotations
 
@@ -343,7 +344,18 @@ def unported_knobs(cfg: FedConfig) -> list[str]:
     with the ROADMAP.md Queue 1 item that ports it."""
     out = []
     if cfg.engine == "sharded":
-        out.append("engine='sharded' (packed engine: ROADMAP Queue 1 item 7)")
+        if cfg.universe is not None:
+            out.append("universe (virtual client universe on the packed "
+                       "engine: ROADMAP Queue 1 item 9)")
+        cohort = cfg.clients_per_round or cfg.total_clients
+        _, _, n_waves = schedule.fed_wave_layout(
+            cohort, pack=cfg.pack, n_devices=cfg.n_devices, waves=cfg.waves)
+        if n_waves > 1:
+            out.append(f"waves/n_devices giving {n_waves} waves "
+                       "(wave-scheduled rounds: ROADMAP Queue 1 item 9)")
+        if cfg.guards:
+            out.append("guards (runtime guards on the packed engine: "
+                       "ROADMAP Queue 1 item 9)")
     if cfg.algorithm in ("fedavg", "fedprox", "flhc"):
         out.append(f"algorithm={cfg.algorithm!r} (baselines and FL+HC: "
                    "ROADMAP Queue 1 item 8)")

@@ -42,6 +42,8 @@ SIGNATURES = {
                        ctypes.c_int, ctypes.c_float, ctypes.c_float, _P),
     "fedsikd_fused_merge": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_float, _P),
+    "fedsikd_kmeans_assign": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_int, _P),
 }
 
 

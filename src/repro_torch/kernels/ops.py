@@ -1,13 +1,19 @@
 """Public entry points over the port's kernels: the contracts of
-``repro.kernels.ops`` for the KD loss and the fused merge.
+``repro.kernels.ops`` for the KD loss, the fused merge and the k-means
+assignment.
 
 - ``kd_distillation_loss`` is a ``torch.autograd.Function`` pairing the
   forward kernel with the analytic backward kernel (the port's form of the
   JAX ``custom_vjp``).  Leading axes are flattened into rows; label -1 marks
   an ignored token; the result is the mean over valid tokens; the teacher
   gets no gradient.
+- ``kd_distillation_loss_lanes`` is the packed engine's form: (S, B, V)
+  logits of S independent client lanes in, the (S,) per-lane means out, in
+  one forward and one backward launch for all lanes (the JAX engine calls
+  the fused loss per lane inside ``vmap``).
 - ``fused_merge`` takes an ``(N, ...)`` stack of one model leaf and returns
   the ``(...)`` float32 decayed weighted mean.
+- ``kmeans_assign`` is the nearest-centroid step of k-means.
 
 The kernels mask their own ragged edges, so nothing is padded here.  A
 tensor on the CPU runs each kernel's plain version; a CUDA tensor runs the
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.kernels import fused_merge as _fm
 from repro_torch.kernels import kd_softmax_kl as _kd
+from repro_torch.kernels import kmeans_assign as _km
 
 
 class _KDLoss(torch.autograd.Function):
@@ -73,6 +80,51 @@ def kd_distillation_loss_batched(student_logits, teacher_logits, labels, *,
                                 alpha)
 
 
+class _KDLossLanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, t, y, tau, alpha):
+        S, B, V = s.shape
+        sf = s.reshape(S * B, V).contiguous()
+        tf = t.reshape(S * B, V).contiguous()
+        yf = y.reshape(-1)
+        per_tok, stats = _kd.kd_loss_fwd(sf, tf, yf, tau=tau, alpha=alpha)
+        valid = torch.clamp((y >= 0).sum(dim=1).to(torch.float32), min=1.0)
+        ctx.save_for_backward(sf, tf, yf, stats, valid)
+        ctx.shape, ctx.tau, ctx.alpha = s.shape, tau, alpha
+        return per_tok.reshape(S, B).sum(dim=1) / valid
+
+    @staticmethod
+    def backward(ctx, g):
+        sf, tf, yf, stats, valid = ctx.saved_tensors
+        S, B, _ = ctx.shape
+        grow = (g.to(torch.float32) / valid)[:, None].expand(S, B)
+        ds = _kd.kd_loss_bwd(sf, tf, yf, stats, grow.reshape(-1).contiguous(),
+                             tau=ctx.tau, alpha=ctx.alpha)
+        return ds.reshape(ctx.shape), None, None, None, None
+
+
+def kd_distillation_loss_lanes(student_logits, teacher_logits, labels, *,
+                               tau: float = 2.0, alpha: float = 0.5):
+    """Per-lane fused distillation loss of S independent client lanes.
+
+    student_logits, teacher_logits: (S, B, V); labels: (S, B), -1 = ignore.
+    Returns (S,) float32: lane ``i``'s mean over its valid rows, the value
+    ``kd_distillation_loss`` gives on lane ``i`` alone.  One forward launch
+    covers the S*B rows; the backward is one launch with each row's
+    upstream gradient ``g[lane] / valid_rows[lane]``."""
+    if (student_logits.dim() != 3
+            or student_logits.shape != teacher_logits.shape):
+        raise ValueError(
+            "student/teacher logits must both be (S, B, V), got "
+            f"{tuple(student_logits.shape)} and "
+            f"{tuple(teacher_logits.shape)}")
+    if labels.shape != student_logits.shape[:2]:
+        raise ValueError(f"labels shape {tuple(labels.shape)} != "
+                         f"{tuple(student_logits.shape[:2])}")
+    return _KDLossLanes.apply(student_logits, teacher_logits, labels,
+                              float(tau), float(alpha))
+
+
 def fused_merge(stacked, weights, staleness=None, *, decay: float = 0.0):
     """Grouped weighted mean with staleness decay, in one kernel pass.
 
@@ -90,3 +142,17 @@ def fused_merge(stacked, weights, staleness=None, *, decay: float = 0.0):
     out = _fm.fused_merge(xf, w.contiguous(), s.contiguous(),
                           decay=float(decay))
     return out.reshape(stacked.shape[1:])
+
+
+def kmeans_assign(x, cents):
+    """Nearest-centroid assignment (the k-means E-step).
+
+    Contract (``repro.kernels.ops.kmeans_assign``):
+      x       : (N, F) float32 points, contiguous.
+      cents   : (K, F) float32 centroids, contiguous, K <= 16.
+      returns : (assignments (N,) int32, squared distance to the assigned
+                centroid (N,) float32).
+
+    Any N is taken as it is (the kernel masks its own ragged edge); ties go
+    to the lowest centroid index, as ``kernels.ref.kmeans_assign_ref``."""
+    return _km.kmeans_assign(x, cents)

@@ -1,7 +1,8 @@
 """Plain-torch oracles for the port's kernels: the counterparts of
-``repro.kernels.ref.kd_loss_ref`` and ``fused_merge_ref``, written in the
-same formulation (log-softmax KL, one weighted contraction) so the tests
-hold both packages to one definition."""
+``repro.kernels.ref.kd_loss_ref``, ``fused_merge_ref`` and
+``kmeans_assign_ref``, written in the same formulation (log-softmax KL, one
+weighted contraction, the distance expansion) so the tests hold both
+packages to one definition."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +33,14 @@ def fused_merge_ref(stacked, weights, staleness=None, *, decay: float = 0.0):
         w = w * (1.0 + s) ** (-decay)
     w = w / w.sum()
     return torch.einsum("n,nd->d", w, x)
+
+
+def kmeans_assign_ref(x, cents):
+    """x: (N,F); cents: (K,F) -> (assignments (N,) int32, sq dists (N,))."""
+    x = x.float()
+    c = cents.float()
+    d = (torch.sum(x * x, -1, keepdim=True) + torch.sum(c * c, -1)[None]
+         - 2.0 * x @ c.T)
+    d = torch.clamp(d, min=0.0)
+    a = torch.argmin(d, dim=-1).to(torch.int32)
+    return a, torch.gather(d, -1, a.long()[:, None])[:, 0]

@@ -23,8 +23,9 @@ Layout (``repro_torch.convert`` maps JAX params onto it):
 XLA's 'SAME' padding at stride 2 is asymmetric (low 0, high 1 for even
 inputs), so convolutions pad explicitly with ``F.pad`` instead of torch's
 symmetric ``padding=``.  Dropout (HAR only, ``train=True`` with a ``key``)
-draws from a ``torch.Generator`` seeded with the integer ``key``; it cannot
-match ``jax.random``'s bits.
+draws from a ``torch.Generator`` seeded with the integer ``key``, or takes a
+ready ``keep`` mask (the packed engine's per-lane masks,
+``make_lane_dropout``); it cannot match ``jax.random``'s bits.
 
 ``make_model`` returns ``(init, fwd)`` like the JAX function: ``init(seed,
 device)`` gives a dict of parameter tensors, ``fwd(params, x, train, key)``
@@ -91,8 +92,8 @@ class MnistCNN(nn.Module):
         self.head = _Layer((hw * hw * filters[-1], num_classes),
                            (num_classes,))
 
-    def forward(self, x, *, train: bool = False, key=None):
-        del train, key                               # no dropout in Table III
+    def forward(self, x, *, train: bool = False, key=None, keep=None):
+        del train, key, keep                         # no dropout in Table III
         h = x.float().permute(0, 3, 1, 2)            # NHWC -> NCHW
         for c in self.conv:
             h = F.relu(_conv2d_same(h, c.w, c.b, 2))
@@ -105,25 +106,38 @@ class HarCNN(nn.Module):
                  input_len: int = 561):
         super().__init__()
         f1 = 64 if student else 128
-        l2 = ((input_len + 1) // 2 + 1) // 2
+        l1 = (input_len + 1) // 2          # after the stride-2 conv and pool
+        l2 = (l1 + 1) // 2
+        self.drop_site = (f1, l1)          # (channels, length) at the dropout
         self.conv1 = _Layer((f1, 1, 3), (f1,))
         self.conv2 = _Layer((256, f1, 3), (256,))
         self.fc1 = _Layer((l2 * 256, 128), (128,))
         self.fc2 = _Layer((128, num_classes), (num_classes,))
 
-    def forward(self, x, *, train: bool = False, key=None):
+    def dropout_shape(self, batch: int) -> tuple:
+        """Shape of the Dropout keep mask of a forward on ``batch`` rows."""
+        return (batch,) + self.drop_site
+
+    def forward(self, x, *, train: bool = False, key=None, keep=None):
         h = x.float().permute(0, 2, 1)               # NWC -> NCW
         h = _conv1d_same(h, self.conv1.w, self.conv1.b, 2)
         h = F.leaky_relu(h, 0.2)
         h = _maxpool1d_same(h, 2, 1)
-        if train and key is not None:                # Dropout 0.25
-            gen = torch.Generator(device=h.device).manual_seed(int(key))
-            keep = torch.rand(h.shape, generator=gen, device=h.device) < 0.75
+        if train and keep is None and key is not None:
+            keep = dropout_keep(self.dropout_shape(h.shape[0]), key, h.device)
+        if train and keep is not None:               # Dropout 0.25
             h = torch.where(keep, h / 0.75, torch.zeros_like(h))
         h = F.relu(_conv1d_same(h, self.conv2.w, self.conv2.b, 2))
         h = h.permute(0, 2, 1).reshape(h.shape[0], -1)      # NWC flatten
         h = F.relu(h @ self.fc1.w + self.fc1.b)
         return h @ self.fc2.w + self.fc2.b
+
+
+def dropout_keep(shape, key: int, device) -> torch.Tensor:
+    """The Dropout(0.25) keep mask of one forward: a ``torch.Generator``
+    seeded with the integer ``key`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(int(key))
+    return torch.rand(shape, generator=gen, device=device) < 0.75
 
 
 def init_params(module: nn.Module, seed: int, device="cpu") -> dict:
@@ -143,21 +157,43 @@ def init_params(module: nn.Module, seed: int, device="cpu") -> dict:
     return {k: v.to(device) for k, v in out.items()}
 
 
+def _module(dataset: str, *, student: bool) -> nn.Module:
+    if dataset == "mnist":
+        return MnistCNN(student=student)
+    if dataset == "har":
+        return HarCNN(student=student)
+    raise ValueError(dataset)
+
+
 def make_model(dataset: str, *, student: bool):
     """(init(seed, device) -> params, fwd(params, x, train, key) -> logits)
     for the paper's models."""
-    if dataset == "mnist":
-        module = MnistCNN(student=student)
-    elif dataset == "har":
-        module = HarCNN(student=student)
-    else:
-        raise ValueError(dataset)
+    module = _module(dataset, student=student)
 
     def init(seed: int, device="cpu"):
         return init_params(module, seed, device)
 
-    def fwd(params, x, *, train: bool = False, key=None):
+    def fwd(params, x, *, train: bool = False, key=None, keep=None):
         return functional_call(module, params, (x,),
-                               {"train": train, "key": key})
+                               {"train": train, "key": key, "keep": keep})
 
     return init, fwd
+
+
+def make_lane_dropout(dataset: str, *, student: bool):
+    """None for a model without dropout, else ``keep(seeds, batch, device)
+    -> (S, ...) bool``: one Dropout keep mask per client lane, each from its
+    own generator (``dropout_keep`` of that lane's integer seed) and of the
+    module's ``dropout_shape``.  The packed engine draws them outside its
+    vmapped forward and passes lane ``i``'s mask as
+    ``fwd(..., keep=masks[i])``."""
+    module = _module(dataset, student=student)
+    if not hasattr(module, "dropout_shape"):
+        return None
+
+    def keep(seeds, batch: int, device):
+        shape = module.dropout_shape(batch)
+        return torch.stack([dropout_keep(shape, int(s), device)
+                            for s in seeds])
+
+    return keep

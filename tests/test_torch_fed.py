@@ -12,8 +12,9 @@ package's, on the CPU.
   here, in the test.  The batch order is shared (``ClientShard.batches`` is
   a copy), so the runs differ only by float32 rounding: per-round accuracy
   agrees to 1 point and loss to 1e-3 relative.
-- ``run_federated`` refuses a missing CUDA device and every knob this slice
-  does not port.
+- ``run_federated`` refuses a missing CUDA device and every knob the port
+  does not run yet (the packed engine's own are in
+  ``tests/test_torch_sharded.py``).
 """
 import jax
 import numpy as np
@@ -188,7 +189,6 @@ def test_run_federated_needs_a_cuda_device():
 
 
 @pytest.mark.parametrize("knob", [
-    {"engine": "sharded"},
     {"algorithm": "fedavg"},
     {"algorithm": "fedprox"},
     {"algorithm": "flhc", "num_clusters": None},

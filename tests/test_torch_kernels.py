@@ -220,8 +220,10 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     ops.kd_distillation_loss(st, torch.from_numpy(t),
                              torch.from_numpy(y)).backward()
     ops.fused_merge(torch.ones(3, 5), np.ones(3, np.float32))
+    ops.kmeans_assign(torch.ones(3, 5), torch.zeros(2, 5))
     assert launch_counts() == {"kd_softmax_kl_fwd": 0,
-                               "kd_softmax_kl_bwd": 0, "fused_merge": 0}
+                               "kd_softmax_kl_bwd": 0, "fused_merge": 0,
+                               "kmeans_assign": 0}
     meta = torch.empty((4, 10), device="meta")
     with pytest.raises(ValueError, match="no kernel or plain path"):
         kd_loss_fwd(meta, meta, torch.empty(4, dtype=torch.int32,
