@@ -9,19 +9,25 @@ holds each kernel against its plain PyTorch version on the card, drives the
 fused distill step and the FedSiKD main path (``run_federated`` on the full
 MNIST twin, 40 clients, 3 rounds) on the card on both engines (the loop
 engine, then the packed engine with all 40 clients as lanes of one stacked
-program), checks that each path went through its kernels, holds the
-packed engine's per-round accuracy and losses to the loop engine's, times every
-kernel beside its bound, and prints one JSON object per line.  The last line is
+program), then serves the full-width, full-depth qwen2.5-3b in bf16 (random
+weights from a seed): a prefill of 2 x 4096 tokens and 32 greedy decode
+steps through ``make_prefill_step`` / ``make_decode_step``, with every
+attention in the flash-attention kernel.  It checks that each path went
+through its kernels, holds the packed engine's per-round accuracy and
+losses to the loop engine's and a float32 2-layer serve's decode logits to
+a full forward of the same tokens, times every kernel beside its bound,
+and prints one JSON object per line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 any failed phase raises, so the script exits non-zero and never prints it.
 It imports nothing of JAX and nothing of the JAX package.
 
     python3 chip_smoke.py --profile
 
-profiles one steady round of the same main path on each engine instead
-(host wall time, device busy time and idle share, launches, the kernels
-that take the device's time) and prints each as one JSON line; it checks
-nothing.
+profiles one steady round of the same main path on each engine, the
+clustering step, and one prefill and one decode step of the served model
+instead (host wall time, device busy time and idle share, launches, the
+kernels that take the device's time) and prints each as one JSON line; it
+checks nothing.
 """
 from __future__ import annotations
 
@@ -36,10 +42,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and the
-# float32 rate outside the tensor cores.  Every bound below uses these.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, the
+# float32 rate outside the tensor cores and the dense bf16 tensor-core rate.
+# Every bound below uses these.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # Operations per logit element, counted from the kernels' arithmetic
 # (exponentials counted as one operation each).
 KD_FWD_OPS_PER_ELEM = 16
@@ -54,6 +62,32 @@ PATH_ROWS = PACKED_LANES * BATCH       # the KD kernels' rows on the packed path
 LOSS_RTOL_TO_LOOP = 1e-2
 # the clustering step's statistics matrix: 40 clients x 3 * 784 features
 KM_N, KM_F = 40, 3 * 784
+# the served model and its traffic: B sequences, a prompt of LM_PROMPT
+# tokens, LM_DECODE greedy steps (the cache grows to LM_PROMPT + LM_DECODE)
+LM_ARCH = "qwen2.5-3b"
+LM_B, LM_PROMPT, LM_DECODE = 2, 4096, 32
+LM_SEED = 0
+# decode-vs-forward bound of the float32 2-layer consistency run (abs and
+# relative): the same function summed in other orders (split keys, T = 1)
+LM_CONSISTENCY_TOL = 1e-3
+# (B, H, KVH, T, S, hd, window) of the flash-attention checks: the JAX
+# kernel test's shapes and windowed case, an unequal-pad causal shape, the
+# served model's prefill and its first and last decode step (T = 1 over the
+# prefix of a LM_PROMPT + LM_DECODE slot cache, a strided view)
+FA_PREFILL = (LM_B, 16, 2, LM_PROMPT, LM_PROMPT, 128, 0)
+FA_DECODE = [(LM_B, 16, 2, 1, LM_PROMPT + 1 + i, 128, 0)
+             for i in (0, LM_DECODE - 1)]
+FA_SHAPES = [(1, 4, 4, 64, 64, 32, 0), (2, 8, 2, 128, 128, 64, 0),
+             (1, 4, 2, 100, 100, 32, 0), (2, 4, 4, 64, 256, 64, 0),
+             (1, 2, 2, 128, 128, 32, 32), (1, 4, 2, 64, 200, 64, 0),
+             FA_PREFILL, *FA_DECODE]
+# (rtol, atol) of the kernel against its plain version.  Both keep scores,
+# softmax weights and the product with V in float32 and round once, at the
+# output: float32 to 2e-5 (measured <= 1.7e-6); bf16 to one rounding of the
+# output, at most 2**-7 = 7.8e-3 of a value, over a float32 floor of 1e-4
+# near zero.  (An atol of 3e-2 would be as large as a typical output:
+# |out| has an RMS of about sqrt(e / S), 0.026 at the decode shapes.)
+FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-4)}
 DEV = "cuda"
 
 
@@ -61,9 +95,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, nops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = nops / F32_FLOPS_PER_S * 1e3
+    to = nops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -184,14 +219,35 @@ def _kmeans_inputs(N, K, seed):
     return x.to(DEV), c.to(DEV)
 
 
+def _fa_inputs(shape, dtype, seed, device=None):
+    """Standard-normal q (B, T, H, hd) and k, v (B, S, KVH, hd) on
+    ``device`` (default ``DEV``); at T = 1 k and v are the first S slots of
+    a LM_PROMPT + LM_DECODE slot cache, as the decode path passes them.
+    ``tests/test_torch_cuda.py`` builds its inputs here too."""
+    import numpy as np
+    import torch
+    B, H, KVH, T, S, hd, _ = shape
+    r = np.random.default_rng(seed)
+    S_buf = LM_PROMPT + LM_DECODE if T == 1 else S
+
+    def normal(*dims):
+        return torch.from_numpy(r.standard_normal(dims, np.float32)).to(
+            device or DEV, dtype)
+    q = normal(B, T, H, hd)
+    return q, normal(B, S_buf, KVH, hd)[:, :S], normal(B, S_buf, KVH, hd)[:, :S]
+
+
 def phase_kernel_checks():
     """Every kernel against its plain version on the card.  The KD rows of
     the kernels line carry the error at the packed path's shape: (2560, 10)
     rows and the per-lane wrapper ``ops.kd_distillation_loss_lanes`` on
-    (40, 64, 10), held against the plain per-lane loss and its gradient."""
+    (40, 64, 10), held against the plain per-lane loss and its gradient;
+    the flash-attention row the largest error at the served model's prefill
+    and decode shapes, in float32 and bf16."""
     import numpy as np
     import torch
     from repro_torch.core.distill import distillation_loss
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_merge as fm
     from repro_torch.kernels import kd_softmax_kl as kd
     from repro_torch.kernels import kmeans_assign as km
@@ -269,6 +325,21 @@ def phase_kernel_checks():
         e = check_close(f"kmeans_assign N={N} F={KM_F} K={K} dist", d, d_p,
                         1e-4, 1e-4)
         errs["kmeans_assign"] = max(errs["kmeans_assign"], e)
+    errs["flash_attention"] = 0.0
+    for shape in FA_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _fa_inputs(shape, dtype, seed=sum(shape))
+            window = shape[-1]
+            out = fa.flash_attention(q, k, v, causal=True, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
+            torch.cuda.synchronize()
+            e = check_close(f"flash_attention (B,H,KVH,T,S,hd,window)="
+                            f"{shape} {str(dtype)[6:]}", out, want,
+                            *FA_TOL[str(dtype)[6:]])
+            if shape == FA_PREFILL or shape in FA_DECODE:
+                errs["flash_attention"] = max(errs["flash_attention"], e)
+            del q, k, v, out, want
     return errs
 
 
@@ -429,6 +500,122 @@ def phase_packed_path(ds, loop_h):
     return counts
 
 
+# ----------------------------------------------------------- phase 4c
+def _grow(cache, extra: int):
+    """The prefill's (L, B, T, KVH, hd) caches with ``extra`` empty slots
+    for the decode steps (the caller's job, as in the JAX tests)."""
+    import torch
+    return {k: torch.cat([c, torch.zeros_like(c[:, :, :extra])], dim=2)
+            for k, c in cache.items()}
+
+
+def _serve(cfg, params, prompt, n_decode: int):
+    """Prefill ``prompt`` (B, T), then ``n_decode`` greedy steps, through
+    the serving entry points.  Returns the logits of every step (the
+    prefill's last-token logits first), the generated tokens and the
+    prefill and decode seconds (host clock, each ending in a synchronize;
+    the decode loop itself never waits for the device)."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    T = prompt.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = _grow(cache, n_decode)
+    logits, toks = [last], []
+    for i in range(n_decode):
+        tok = logits[-1].argmax(dim=-1, keepdim=True)
+        toks.append(tok)
+        out, cache = decode(params, cache, tok, T + i)
+        logits.append(out)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return logits, torch.cat(toks, dim=1), t1 - t0, t2 - t1
+
+
+def _lm_prompt(cfg):
+    import numpy as np
+    import torch
+    r = np.random.default_rng(LM_SEED + 1)
+    return torch.from_numpy(r.integers(0, cfg.vocab_size, (LM_B, LM_PROMPT))
+                            ).to(DEV)
+
+
+def phase_lm_serve(smi):
+    """The served model's main path: full qwen2.5-3b (36 layers, d_model
+    2048, 16/2 heads, head_dim 128, vocab 151936, bf16), a prefill of
+    LM_B x LM_PROMPT tokens and LM_DECODE greedy decode steps, after one
+    untimed warm-up serve.  Every attention is one flash-attention launch,
+    so the path makes L x (1 + LM_DECODE) of them.  Then a float32 copy
+    with 2 layers at the same widths serves the same traffic, and each
+    step's logits are held to a full forward of the same tokens."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(LM_ARCH)
+    params = tf.init_lm(LM_SEED, cfg, device=DEV)
+    prompt = _lm_prompt(cfg)
+    _serve(cfg, params, prompt, 2)                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, toks, pre_s, dec_s = _serve(cfg, params, prompt, LM_DECODE)
+    counts = launch_counts()
+    finite = bool(torch.isfinite(torch.stack(logits).float()).all())
+    want_fa = cfg.num_layers * (1 + LM_DECODE)
+    emit({"phase": "lm_serve", "card": smi,
+          "config": f"{LM_ARCH} full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, head_dim {cfg.hd}, vocab "
+          f"{cfg.vocab_size}), {cfg.dtype}, random weights seed {LM_SEED}",
+          "params": cfg.param_count(), "batch": LM_B, "prompt": LM_PROMPT,
+          "decode_steps": LM_DECODE, "prefill_ms": pre_s * 1e3,
+          "prefill_tokens_per_s": LM_B * LM_PROMPT / pre_s,
+          "decode_ms_per_token": dec_s * 1e3 / LM_DECODE,
+          "decode_tokens_per_s": LM_B * LM_DECODE / dec_s,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "generated_tokens_row0": toks[0].tolist(),
+          "logits_finite": finite, "launches": counts,
+          "expected_flash_attention_launches": want_fa})
+    if counts["flash_attention"] != want_fa:
+        raise RuntimeError(f"expected {want_fa} flash_attention launches "
+                           f"({cfg.num_layers} layers x (1 + {LM_DECODE})), "
+                           f"counted {counts['flash_attention']}")
+    if not finite:
+        raise RuntimeError("the served model produced non-finite logits")
+    del params, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    params = tf.init_lm(LM_SEED, cfg32, device=DEV)
+    logits, toks, _, _ = _serve(cfg32, params, prompt, LM_DECODE)
+    full, _ = tf.forward(params, cfg32,
+                         {"tokens": torch.cat([prompt, toks], dim=1)})
+    want = full[:, LM_PROMPT - 1:LM_PROMPT + LM_DECODE].transpose(0, 1)
+    got = torch.stack(logits)
+    gap = (got - want).abs()
+    share = float((gap / (LM_CONSISTENCY_TOL
+                          + LM_CONSISTENCY_TOL * want.abs())).max())
+    ok = share <= 1.0
+    emit({"check": f"lm_serve float32 2-layer: prefill + {LM_DECODE} decode "
+          "steps vs a full forward of the same tokens",
+          "max_abs_err": float(gap.max()), "max_share_of_bound": share,
+          "max_abs_logit": float(want.abs().max()),
+          "rtol": LM_CONSISTENCY_TOL, "atol": LM_CONSISTENCY_TOL, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"decode logits differ from the full forward by "
+                           f"{float(gap.max())} (limit {LM_CONSISTENCY_TOL})")
+    del params, logits, full
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------------------ phase 5
 def _kd_timing(T, V, dtype, seed):
     import torch
@@ -491,6 +678,44 @@ def _kmeans_timing(N, K, seed):
     return out
 
 
+def fa_work(shape, elt: int) -> tuple[float, float]:
+    """(bytes, flops) of one flash-attention call: q, k, v read once and
+    the output written once; 4 hd operations per (query, visible key) pair
+    of every head (the two products), counting only the keys this mask
+    shows."""
+    B, H, KVH, T, S, hd, window = shape
+    off = S - T
+    pairs = 0
+    for t in range(T):
+        hi = min(S, t + off + 1)
+        lo = max(0, t + off - window + 1) if window else 0
+        pairs += hi - lo if hi > 0 else S
+    nbytes = (2 * B * T * H * hd + 2 * B * S * KVH * hd) * elt
+    return nbytes, 4.0 * hd * pairs * B * H
+
+
+def _fa_timing(shape, seed):
+    """The kernel, its plain version and SDPA (``is_causal`` for T == S;
+    a decode step's one query sees every key, so no mask) in bf16 at one
+    of the served model's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _fa_inputs(shape, torch.bfloat16, seed)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    causal = shape[3] > 1
+    iters = 10 if causal else 50
+    out = {"shape": f"(B,H,KVH,T,S,hd)={shape[:6]} bf16",
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v), iters=iters),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                               iters=iters),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=causal, enable_gqa=True), iters=iters)}
+    out["bound_ms"], out["bound_by"] = bound_ms(*fa_work(shape, 2),
+                                                BF16_FLOPS_PER_S)
+    return out
+
+
 def phase_timing(errs, path_counts, smi):
     import torch
     rows_path = PATH_ROWS
@@ -509,6 +734,10 @@ def phase_timing(errs, path_counts, smi):
               "fwd": f, "bwd": b, "card": smi})
     emit({"timing": "fused_merge, one round (10 leaves, N=40)", **merge,
           "card": smi})
+    fa_prefill = _fa_timing(FA_PREFILL, 30)
+    fa_decode = _fa_timing(FA_DECODE[-1], 31)
+    emit({"timing": "flash_attention, the served model's decode step",
+          **fa_decode, "card": smi})
     src = "src/repro_torch/kernels/csrc/"
     rows = [
         {"name": "kd_softmax_kl_fwd", "route": "cuda",
@@ -533,6 +762,12 @@ def phase_timing(errs, path_counts, smi):
          "replaces": "src/repro/kernels/kmeans_assign.py:16",
          "shape": f"N={KM_N} F={KM_F} K=5 float32, one call", **km_path,
          "path": "run_federated packed (clustering step)"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:22",
+         **fa_prefill, "decode": fa_decode,
+         "path": f"{LM_ARCH} serve: prefill {LM_B} x {LM_PROMPT} + "
+         f"{LM_DECODE} decode steps"},
     ]
     for r in rows:
         r["launches"] = path_counts[r["name"]]
@@ -542,10 +777,13 @@ def phase_timing(errs, path_counts, smi):
 
 # ---------------------------------------------------------- --profile mode
 PORT_KERNELS = ("kd_fwd_kernel", "kd_bwd_kernel", "fused_merge_kernel",
-                "kmeans_assign_kernel")
-# substrings that sort device kernels into groups, tried in order
+                "kmeans_assign_kernel", "fa_fwd_kernel", "fa_merge_kernel")
+# substrings that sort device kernels into groups, tried in order (cuBLAS's
+# "xmma_gemm" before cuDNN's "xmma" convolutions)
 KERNEL_GROUPS = (("port", PORT_KERNELS),
                  ("memcpy/memset", ("Memcpy", "Memset")),
+                 ("matmul (cuBLAS)", ("xmma_gemm", "nvjet", "gemv",
+                                      "gemmSN", "cutlass")),
                  ("conv (cuDNN)", ("cudnn", "xmma", "conv", "wgrad", "dgrad",
                                    "implicit_gemm", "nhwcToNchw",
                                    "nchwToNhwc")),
@@ -710,6 +948,46 @@ def phase_profile(ds, smi):
           / sum(steps.values()), **summary})
 
 
+def phase_profile_lm(smi):
+    """Under ``torch.profiler``, after one untimed warm-up serve: one
+    prefill of the served model (LM_B x LM_PROMPT tokens) and one decode
+    step at position LM_PROMPT, each its own window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tf
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    cfg = get_config(LM_ARCH)
+    params = tf.init_lm(LM_SEED, cfg, device=DEV)
+    prompt = _lm_prompt(cfg)
+    _serve(cfg, params, prompt, 2)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    reset_launches()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        last, cache = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    emit({"phase": "profile", "window": f"{LM_ARCH} prefill "
+          f"{LM_B} x {LM_PROMPT}", "card": smi, "port_launches":
+          launch_counts(), **_device_summary(prof, t1 - t0)})
+    cache = _grow(cache, LM_DECODE)
+    tok = last.argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        decode(params, cache, tok, LM_PROMPT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    emit({"phase": "profile", "window": f"{LM_ARCH} decode step at "
+          f"position {LM_PROMPT}", "card": smi,
+          "port_launches": launch_counts(), **_device_summary(prof, t1 - t0)})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -722,6 +1000,7 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--profile"]:
         phase_profile(load_dataset("mnist"), smi)
+        phase_profile_lm(smi)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
@@ -732,19 +1011,22 @@ def main() -> int:
     kd_counts = phase_fused_distill(ds)
     merge_counts, loop_h = phase_main_path(ds)
     packed_counts = phase_packed_path(ds, loop_h)
+    lm_counts = phase_lm_serve(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
                     ("fused_merge", merge_counts),
                     ("kd_softmax_kl_fwd", packed_counts),
                     ("kd_softmax_kl_bwd", packed_counts),
                     ("kmeans_assign", merge_counts),
-                    ("kmeans_assign", packed_counts)):
+                    ("kmeans_assign", packed_counts),
+                    ("flash_attention", lm_counts)):
         if c[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")
     path_counts = {"kd_softmax_kl_fwd": packed_counts["kd_softmax_kl_fwd"],
                    "kd_softmax_kl_bwd": packed_counts["kd_softmax_kl_bwd"],
                    "fused_merge": merge_counts["fused_merge"],
-                   "kmeans_assign": packed_counts["kmeans_assign"]}
+                   "kmeans_assign": packed_counts["kmeans_assign"],
+                   "flash_attention": lm_counts["flash_attention"]}
     phase_timing(errs, path_counts, smi)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,6 +15,14 @@
   applies to the axes after it.
 
 The round trip is exact: only transposes and copies, no arithmetic.
+
+Language models (``lm_params_from_jax`` / ``lm_params_to_jax``) keep the
+nested dict of the JAX params (``p["layers"]["attn"]["wq"]``) and permute
+nothing: every LM weight is ``(in, out)``, its layers stacked on a leading
+L axis, so the conv rule above, which reads any 3-D leaf as WIO, must not
+touch them.  A bfloat16 leaf, which ``np.asarray`` gives as
+``ml_dtypes.bfloat16``, crosses as float32 (every bf16 value is a float32),
+so that direction is exact too.
 """
 from __future__ import annotations
 
@@ -109,3 +117,35 @@ def adam_to_jax(state: AdamState, *, stacked: bool = False) -> tuple:
     return (params_to_jax(state.mu, stacked=stacked),
             params_to_jax(state.nu, stacked=stacked),
             count if stacked else np.int32(count))
+
+
+def _bf16_as_f32(a: np.ndarray) -> tuple[np.ndarray, bool]:
+    """``a`` as an array torch takes; bfloat16 (which numpy knows only
+    through ``ml_dtypes``) as float32, flagged to be cast back."""
+    if a.dtype.name == "bfloat16":
+        return a.astype(np.float32), True
+    return a, False
+
+
+def lm_params_from_jax(tree, *, device="cpu"):
+    """A JAX LM param pytree (nested dicts of arrays) -> the same nested
+    dicts of tensors on ``device``, layouts and dtypes kept."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, device=device)
+                for k, v in tree.items()}
+    a, bf16 = _bf16_as_f32(np.asarray(tree))
+    t = torch.from_numpy(np.array(a, order="C")).to(device)
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def lm_params_to_jax(params):
+    """The inverse of ``lm_params_from_jax``: nested dicts of numpy arrays,
+    bfloat16 leaves as ``ml_dtypes.bfloat16`` (imported here, for the
+    tests' JAX side; the port itself never needs it)."""
+    if isinstance(params, dict):
+        return {k: lm_params_to_jax(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy().copy()

@@ -4,14 +4,15 @@ plain versions and public entry points (``ops``).
 ``KERNELS`` maps each kernel's name to its wrapper; every wrapper carries a
 ``launches`` count that goes up by one where it launches its kernel.
 """
-from repro_torch.kernels import (fused_merge, kd_softmax_kl, kmeans_assign,
-                                 ops, ref)
+from repro_torch.kernels import (flash_attention, fused_merge, kd_softmax_kl,
+                                 kmeans_assign, ops, ref)
 
 KERNELS = {
     "kd_softmax_kl_fwd": kd_softmax_kl.kd_loss_fwd,
     "kd_softmax_kl_bwd": kd_softmax_kl.kd_loss_bwd,
     "fused_merge": fused_merge.fused_merge,
     "kmeans_assign": kmeans_assign.kmeans_assign,
+    "flash_attention": flash_attention.flash_attention,
 }
 
 
@@ -24,5 +25,5 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["fused_merge", "kd_softmax_kl", "kmeans_assign", "ops", "ref",
+__all__ = ["flash_attention", "fused_merge", "kd_softmax_kl", "kmeans_assign", "ops", "ref",
            "KERNELS", "reset_launches", "launch_counts"]

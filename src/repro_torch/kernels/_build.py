@@ -44,6 +44,11 @@ SIGNATURES = {
                             ctypes.c_int, ctypes.c_float, _P),
     "fedsikd_kmeans_assign": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                               ctypes.c_int, _P),
+    # q, k, v, out, part_acc, part_ml; (batch, seq, head) strides of q, k,
+    # v, out; B, T, S, H, KVH, hd, causal, window; scale; n_split,
+    # split_len, dtype; stream
+    "fedsikd_flash_attention": (_P,) * 6 + (ctypes.c_longlong,) * 12
+    + (ctypes.c_int,) * 8 + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (_P,),
 }
 
 

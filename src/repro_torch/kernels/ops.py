@@ -1,6 +1,6 @@
 """Public entry points over the port's kernels: the contracts of
-``repro.kernels.ops`` for the KD loss, the fused merge and the k-means
-assignment.
+``repro.kernels.ops`` for the KD loss, the fused merge, the k-means
+assignment and flash attention.
 
 - ``kd_distillation_loss`` is a ``torch.autograd.Function`` pairing the
   forward kernel with the analytic backward kernel (the port's form of the
@@ -14,15 +14,19 @@ assignment.
 - ``fused_merge`` takes an ``(N, ...)`` stack of one model leaf and returns
   the ``(...)`` float32 decayed weighted mean.
 - ``kmeans_assign`` is the nearest-centroid step of k-means.
+- ``flash_attention`` is grouped-query attention with the right-aligned
+  causal mask, in the layer layout.
 
 The kernels mask their own ragged edges, so nothing is padded here.  A
 tensor on the CPU runs each kernel's plain version; a CUDA tensor runs the
-kernel (``kernels/kd_softmax_kl.py``, ``kernels/fused_merge.py``).
+kernel (``kernels/kd_softmax_kl.py``, ``kernels/fused_merge.py``,
+``kernels/kmeans_assign.py``, ``kernels/flash_attention.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_merge as _fm
 from repro_torch.kernels import kd_softmax_kl as _kd
 from repro_torch.kernels import kmeans_assign as _km
@@ -156,3 +160,23 @@ def kmeans_assign(x, cents):
     Any N is taken as it is (the kernel masks its own ragged edge); ties go
     to the lowest centroid index, as ``kernels.ref.kmeans_assign_ref``."""
     return _km.kmeans_assign(x, cents)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Streaming (flash-style) attention.
+
+    Contract (``repro.kernels.ops.flash_attention``):
+      q       : (B, T, H, hd)   layer layout, heads on axis 2.
+      k, v    : (B, S, KVH, hd) KVH divides H (grouped-query attention:
+                each KV head serves H/KVH query heads).
+      returns : (B, T, H, hd), same dtype as ``q``.
+
+    ``causal=True`` applies the RIGHT-ALIGNED causal mask (query i attends
+    to keys up to S - T + i), so cross-length decode shapes (T < S) work;
+    ``window > 0`` also limits each query to its last ``window`` keys.
+    dtype float32 or bfloat16, accumulation in float32.  Unlike the JAX
+    wrapper nothing is padded: the kernel masks ragged T and S itself, so
+    every pair of lengths is taken (the JAX wrapper refuses causal calls
+    whose T and S pad unequally).  k and v may be strided views (a KV
+    cache's visible prefix) as long as the hd axis is contiguous."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)

@@ -8,12 +8,22 @@ one, run them with
 Tolerances are those of ``chip_smoke.py``: 2e-5 on the f32 KD loss and
 stats, 1e-5 on its gradient, 5e-2 in bf16, 1e-5 on the f32 merge and 2e-2
 on a bf16 leaf, 1e-4 relative on k-means distances with no assignment
-differing.  This file imports no JAX, so it runs where JAX is absent.
+differing, and ``chip_smoke.FA_TOL`` on flash attention (2e-5 in f32; in
+bf16 one rounding of the output, rtol 8e-3 over an atol of 1e-4), whose
+shapes and inputs also come from ``chip_smoke.py``.  This file imports no
+JAX, so it runs where JAX is absent.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the repository root's smoke script)
+
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_merge as fm
 from repro_torch.kernels import kd_softmax_kl as kd
 from repro_torch.kernels import kmeans_assign as km
@@ -213,3 +223,100 @@ def test_packed_run_on_the_card_matches_cpu(dev, monkeypatch):
     assert gaps["acc"] <= 0.02
     for key in ("loss", "teacher_loss", "student_loss"):
         assert gaps[key] <= 1e-2, (key, h[key], want[key])
+
+
+@pytest.mark.parametrize("shape", chip_smoke.FA_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, shape, dtype):
+    """At the shapes of ``chip_smoke.py``'s phase 2, from its input builder
+    and with its tolerances: the JAX kernel test's shapes and windowed case,
+    an unequal-pad causal shape the JAX wrapper refuses, the serving path's
+    prefill, and its decode steps over a cache prefix (strided views)."""
+    B, H, KVH, T, S, hd, window = shape
+    q, k, v = chip_smoke._fa_inputs(shape, dtype, sum(shape), dev)
+    reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    assert out.dtype == dtype and out.shape == (B, T, H, hd)
+    rtol, atol = chip_smoke.FA_TOL[str(dtype)[6:]]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert launch_counts()["flash_attention"] == 1
+
+
+def test_flash_attention_fully_masked_rows_average_v(dev):
+    """T > S, right-aligned: the first T - S queries see no key and, with
+    the -1e30 mask, average V over all S keys, as the reference does."""
+    q, k, v = chip_smoke._fa_inputs((1, 4, 2, 96, 40, 64, 0), torch.float32,
+                                    3, dev)
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    mean_v = v.mean(dim=1).repeat_interleave(2, dim=1)       # (B, H, hd)
+    torch.testing.assert_close(out[:, 0], mean_v, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v = chip_smoke._fa_inputs((1, 4, 2, 8, 8, 64, 0), torch.float32, 4,
+                                    dev)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_attention(q, k.bfloat16(), v)
+    q48, k48, v48 = (t[..., :48] for t in (q, k, v))
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q48.contiguous(), k48.contiguous(),
+                            v48.contiguous())
+    with pytest.raises(ValueError, match="different devices"):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                            v)
+    shifted = torch.empty(k.numel() + 1, device=dev)[1:].view(k.shape)
+    shifted.copy_(k)                      # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, shifted, v)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _serve(cfg, params, toks, T, device):
+    """Prefill ``toks[:, :T]``, grow the cache, decode the rest of ``toks``
+    one token at a time; the (1 + extra, B, V) logits on the CPU."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    p = _to(params, device)
+    last, cache = make_prefill_step(cfg)(p, {"tokens": toks[:, :T].to(device)})
+    extra = toks.shape[1] - T
+    cache = chip_smoke._grow(cache, extra)
+    decode = make_decode_step(cfg)
+    outs = [last]
+    for t in range(T, T + extra):
+        logits, cache = decode(p, cache, toks[:, t:t + 1].to(device), t)
+        outs.append(logits)
+    return torch.stack(outs).cpu()
+
+
+def test_lm_prefill_and_decode_on_the_card_match_cpu(dev):
+    """A 2-layer smoke-width qwen2.5-3b in float32: a 24-token prefill and
+    8 decode steps on the card against the same calls on the CPU (the
+    kernel against its plain version inside the whole model)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True),
+                              dtype="float32")
+    T, extra = 24, 8
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, T + extra)))
+    params = tf.init_lm(3, cfg, device="cpu")
+    want = _serve(cfg, params, toks, T, "cpu")
+    reset_launches()
+    got = _serve(cfg, params, toks, T, dev)
+    assert launch_counts()["flash_attention"] == cfg.num_layers * (1 + extra)
+    print(f"lm card-vs-cpu max abs gap {float((got - want).abs().max())}")
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

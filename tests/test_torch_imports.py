@@ -38,4 +38,9 @@ def test_the_walk_sees_the_whole_port():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/fed/rounds.py" in names
     assert "src/repro_torch/kernels/ops.py" in names
-    assert len(names) >= 25
+    for module in ("configs/base.py", "configs/qwen2_5_3b.py",
+                   "configs/glm4_9b.py", "configs/minitron_8b.py",
+                   "models/layers.py", "models/transformer.py",
+                   "launch/steps.py", "kernels/flash_attention.py"):
+        assert f"src/repro_torch/{module}" in names
+    assert len(names) >= 36

@@ -221,10 +221,15 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
                              torch.from_numpy(y)).backward()
     ops.fused_merge(torch.ones(3, 5), np.ones(3, np.float32))
     ops.kmeans_assign(torch.ones(3, 5), torch.zeros(2, 5))
+    ops.flash_attention(torch.ones(1, 4, 2, 32), torch.ones(1, 6, 1, 32),
+                        torch.ones(1, 6, 1, 32))
     assert launch_counts() == {"kd_softmax_kl_fwd": 0,
                                "kd_softmax_kl_bwd": 0, "fused_merge": 0,
-                               "kmeans_assign": 0}
+                               "kmeans_assign": 0, "flash_attention": 0}
     meta = torch.empty((4, 10), device="meta")
     with pytest.raises(ValueError, match="no kernel or plain path"):
         kd_loss_fwd(meta, meta, torch.empty(4, dtype=torch.int32,
                                             device="meta"))
+    meta_qkv = torch.empty((1, 4, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain path"):
+        ops.flash_attention(meta_qkv, meta_qkv, meta_qkv)
