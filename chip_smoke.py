@@ -12,8 +12,9 @@ engine, then the packed engine with all 40 clients as lanes of one stacked
 program), then serves the full-width, full-depth qwen2.5-3b in bf16 (random
 weights from a seed): a prefill of 2 x 4096 tokens and 32 greedy decode
 steps through ``make_prefill_step`` / ``make_decode_step``, with every
-attention in the flash-attention kernel.  It checks that each path went
-through its kernels, holds the packed engine's per-round accuracy and
+attention in a flash-attention kernel (the bf16 prefill on the tensor-core
+kernel, every decode step on the decode kernel).  It checks that each path
+went through its kernels, holds the packed engine's per-round accuracy and
 losses to the loop engine's and a float32 2-layer serve's decode logits to
 a full forward of the same tokens, times every kernel beside its bound,
 and prints one JSON object per line.  The last line is
@@ -88,6 +89,8 @@ FA_SHAPES = [(1, 4, 4, 64, 64, 32, 0), (2, 8, 2, 128, 128, 64, 0),
 # near zero.  (An atol of 3e-2 would be as large as a typical output:
 # |out| has an RMS of about sqrt(e / S), 0.026 at the decode shapes.)
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-4)}
+# T > S: the first T - S queries see no key and average V (the -1e30 mask)
+FA_MASKED = (1, 4, 2, 96, 40, 64, 0)
 DEV = "cuda"
 
 
@@ -326,19 +329,37 @@ def phase_kernel_checks():
                         1e-4, 1e-4)
         errs["kmeans_assign"] = max(errs["kmeans_assign"], e)
     errs["flash_attention"] = 0.0
-    for shape in FA_SHAPES:
+    errs["flash_attention_decode"] = 0.0
+    for shape in [*FA_SHAPES, FA_MASKED]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _fa_inputs(shape, dtype, seed=sum(shape))
             window = shape[-1]
+            before = dict(fa.flash_attention.variant_launches)
             out = fa.flash_attention(q, k, v, causal=True, window=window)
             want = fa.flash_attention_plain(q, k, v, causal=True,
                                             window=window)
             torch.cuda.synchronize()
-            e = check_close(f"flash_attention (B,H,KVH,T,S,hd,window)="
-                            f"{shape} {str(dtype)[6:]}", out, want,
-                            *FA_TOL[str(dtype)[6:]])
+            kind = fa.variant(dtype, shape[3])
+            took = [name for name, n in fa.flash_attention.variant_launches
+                    .items() if n != before[name]]
+            tag = (f"flash_attention (B,H,KVH,T,S,hd,window)={shape} "
+                   f"{str(dtype)[6:]} [{kind}]")
+            if took != [kind]:
+                raise RuntimeError(f"{tag}: the dispatch says {kind}, the "
+                                   f"call launched {took}")
+            e = check_close(tag, out, want, *FA_TOL[str(dtype)[6:]])
             if shape == FA_PREFILL or shape in FA_DECODE:
-                errs["flash_attention"] = max(errs["flash_attention"], e)
+                key = "flash_attention" + ("_decode" if shape[3] == 1
+                                           else "")
+                errs[key] = max(errs[key], e)
+            if shape == FA_MASKED:
+                B, H, KVH, T, S = shape[:5]
+                mean_v = v.float().mean(dim=1).repeat_interleave(H // KVH,
+                                                                 dim=1)
+                check_close(f"{tag}: the {T - S} rows that see no key "
+                            "average V", out[:, :T - S],
+                            mean_v[:, None].expand(-1, T - S, -1, -1)
+                            .to(dtype), *FA_TOL[str(dtype)[6:]])
             del q, k, v, out, want
     return errs
 
@@ -556,6 +577,7 @@ def phase_lm_serve(smi):
 
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import transformer as tf
 
@@ -567,8 +589,11 @@ def phase_lm_serve(smi):
     reset_launches()
     logits, toks, pre_s, dec_s = _serve(cfg, params, prompt, LM_DECODE)
     counts = launch_counts()
+    variants = dict(fa.flash_attention.variant_launches)
     finite = bool(torch.isfinite(torch.stack(logits).float()).all())
     want_fa = cfg.num_layers * (1 + LM_DECODE)
+    want_variants = {"v1": 0, "tensor_core": cfg.num_layers,
+                     "decode": cfg.num_layers * LM_DECODE}
     emit({"phase": "lm_serve", "card": smi,
           "config": f"{LM_ARCH} full width and depth ({cfg.num_layers} "
           f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
@@ -582,11 +607,18 @@ def phase_lm_serve(smi):
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "generated_tokens_row0": toks[0].tolist(),
           "logits_finite": finite, "launches": counts,
-          "expected_flash_attention_launches": want_fa})
+          "expected_flash_attention_launches": want_fa,
+          "flash_attention_variants": variants,
+          "expected_flash_attention_variants": want_variants})
     if counts["flash_attention"] != want_fa:
         raise RuntimeError(f"expected {want_fa} flash_attention launches "
                            f"({cfg.num_layers} layers x (1 + {LM_DECODE})), "
                            f"counted {counts['flash_attention']}")
+    if variants != want_variants:
+        raise RuntimeError(f"expected the flash_attention kernels "
+                           f"{want_variants} (bf16 prefill on the tensor "
+                           f"cores, T = 1 on the decode kernel), counted "
+                           f"{variants}")
     if not finite:
         raise RuntimeError("the served model produced non-finite logits")
     del params, logits
@@ -613,7 +645,7 @@ def phase_lm_serve(smi):
                            f"{float(gap.max())} (limit {LM_CONSISTENCY_TOL})")
     del params, logits, full
     torch.cuda.empty_cache()
-    return counts
+    return counts, variants
 
 
 # ------------------------------------------------------------------ phase 5
@@ -694,10 +726,33 @@ def fa_work(shape, elt: int) -> tuple[float, float]:
     return nbytes, 4.0 * hd * pairs * B * H
 
 
+def device_us(fn, keys, calls: int = 20) -> float:
+    """Device time per call of ``fn`` spent in the kernels whose names
+    contain one of ``keys``: ``torch.profiler`` over ``calls`` calls after
+    a warm-up.  Raises when no such kernel ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(k in e.key for k in keys))
+    if us <= 0:
+        raise RuntimeError(f"the profiler saw no device time in {keys}")
+    return us / calls
+
+
 def _fa_timing(shape, seed):
-    """The kernel, its plain version and SDPA (``is_causal`` for T == S;
-    a decode step's one query sees every key, so no mask) in bf16 at one
-    of the served model's shapes."""
+    """The kernel the dispatch picks (tensor-core kernel for the prefill,
+    decode kernel for T = 1), its device time per call, its plain version
+    and SDPA (``is_causal`` for T == S; a decode step's one query sees
+    every key, so no mask) in bf16 at one of the served model's shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -705,8 +760,15 @@ def _fa_timing(shape, seed):
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     causal = shape[3] > 1
     iters = 10 if causal else 50
-    out = {"shape": f"(B,H,KVH,T,S,hd)={shape[:6]} bf16",
+    kind = fa.variant(torch.bfloat16, shape[3])
+    kernel = {"tensor_core": "fa_tc_kernel", "decode": "fa_decode_kernel"}
+    out = {"shape": f"(B,H,KVH,T,S,hd)={shape[:6]} bf16", "kernel": kind,
+           "source": "src/repro_torch/kernels/csrc/" + {
+               "tensor_core": "flash_attention_tc.cu",
+               "decode": "flash_attention_decode.cu"}[kind],
            "ms": time_ms(lambda: fa.flash_attention(q, k, v), iters=iters),
+           "device_us": device_us(lambda: fa.flash_attention(q, k, v),
+                                  (kernel[kind],)),
            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
                                iters=iters),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -716,7 +778,7 @@ def _fa_timing(shape, seed):
     return out
 
 
-def phase_timing(errs, path_counts, smi):
+def phase_timing(errs, path_counts, variants, smi):
     import torch
     rows_path = PATH_ROWS
     kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
@@ -763,9 +825,14 @@ def phase_timing(errs, path_counts, smi):
          "shape": f"N={KM_N} F={KM_F} K=5 float32, one call", **km_path,
          "path": "run_federated packed (clustering step)"},
         {"name": "flash_attention", "route": "cuda",
-         "source": src + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:22",
-         **fa_prefill, "decode": fa_decode,
+         **fa_prefill,
+         "decode": {**fa_decode,
+                    "max_abs_err": errs["flash_attention_decode"]},
+         "sources": [src + f for f in ("flash_attention_tc.cu",
+                                       "flash_attention_decode.cu",
+                                       "flash_attention.cu")],
+         "variant_launches": variants,
          "path": f"{LM_ARCH} serve: prefill {LM_B} x {LM_PROMPT} + "
          f"{LM_DECODE} decode steps"},
     ]
@@ -777,7 +844,8 @@ def phase_timing(errs, path_counts, smi):
 
 # ---------------------------------------------------------- --profile mode
 PORT_KERNELS = ("kd_fwd_kernel", "kd_bwd_kernel", "fused_merge_kernel",
-                "kmeans_assign_kernel", "fa_fwd_kernel", "fa_merge_kernel")
+                "kmeans_assign_kernel", "fa_fwd_kernel", "fa_merge_kernel",
+                "fa_tc_kernel", "fa_decode_kernel")
 # substrings that sort device kernels into groups, tried in order (cuBLAS's
 # "xmma_gemm" before cuDNN's "xmma" convolutions)
 KERNEL_GROUPS = (("port", PORT_KERNELS),
@@ -955,6 +1023,7 @@ def phase_profile_lm(smi):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import transformer as tf
@@ -973,7 +1042,9 @@ def phase_profile_lm(smi):
         t1 = time.perf_counter()
     emit({"phase": "profile", "window": f"{LM_ARCH} prefill "
           f"{LM_B} x {LM_PROMPT}", "card": smi, "port_launches":
-          launch_counts(), **_device_summary(prof, t1 - t0)})
+          launch_counts(), "flash_attention_variants":
+          dict(fa.flash_attention.variant_launches),
+          **_device_summary(prof, t1 - t0)})
     cache = _grow(cache, LM_DECODE)
     tok = last.argmax(dim=-1, keepdim=True)
     torch.cuda.synchronize()
@@ -985,7 +1056,9 @@ def phase_profile_lm(smi):
         t1 = time.perf_counter()
     emit({"phase": "profile", "window": f"{LM_ARCH} decode step at "
           f"position {LM_PROMPT}", "card": smi,
-          "port_launches": launch_counts(), **_device_summary(prof, t1 - t0)})
+          "port_launches": launch_counts(), "flash_attention_variants":
+          dict(fa.flash_attention.variant_launches),
+          **_device_summary(prof, t1 - t0)})
 
 
 def main() -> int:
@@ -1011,7 +1084,7 @@ def main() -> int:
     kd_counts = phase_fused_distill(ds)
     merge_counts, loop_h = phase_main_path(ds)
     packed_counts = phase_packed_path(ds, loop_h)
-    lm_counts = phase_lm_serve(smi)
+    lm_counts, lm_variants = phase_lm_serve(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
                     ("fused_merge", merge_counts),
@@ -1027,7 +1100,7 @@ def main() -> int:
                    "fused_merge": merge_counts["fused_merge"],
                    "kmeans_assign": packed_counts["kmeans_assign"],
                    "flash_attention": lm_counts["flash_attention"]}
-    phase_timing(errs, path_counts, smi)
+    phase_timing(errs, path_counts, lm_variants, smi)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,16 @@ SIGNATURES = {
     # split_len, dtype; stream
     "fedsikd_flash_attention": (_P,) * 6 + (ctypes.c_longlong,) * 12
     + (ctypes.c_int,) * 8 + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (_P,),
+    # q, k, v, out; (batch, seq, head) strides of q, k, v, out; B, T, S, H,
+    # KVH, hd, causal, window; scale; stream
+    "fedsikd_flash_attention_tc": (_P,) * 4 + (ctypes.c_longlong,) * 12
+    + (ctypes.c_int,) * 8 + (ctypes.c_float,) + (_P,),
+    # q, k, v, out, part_acc, part_ml, tickets; q's batch and head strides,
+    # k's and v's (batch, seq, head) strides, out's batch and head strides;
+    # B, S, H, KVH, hd, heads a block, n_gblk, lo, n_span, span_len, dtype;
+    # scale; stream
+    "fedsikd_flash_attention_decode": (_P,) * 7 + (ctypes.c_longlong,) * 10
+    + (ctypes.c_int,) * 11 + (ctypes.c_float,) + (_P,),
 }
 
 

@@ -1,4 +1,5 @@
-// Shared helpers for the port's hand-written Hopper kernels.
+// Shared helpers for the port's hand-written Hopper kernels: storage types,
+// 16-byte widening loads, cp.async copies and exp2.
 //
 // Every kernel reads its floating-point inputs in one of three storage
 // types and computes in float32.  The type travels across the plain C
@@ -25,6 +26,49 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
+}
+
+// 16 bytes of T in memory widened to float32 (bf16 exactly).
+__device__ __forceinline__ void widen(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {             // little-endian: element 2i low
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// cp.async: 16 bytes from global to shared memory, bypassing L1.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const auto s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {   // all but the newest N
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x by the special-function unit (max relative error 2^-22).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace fedsikd

@@ -3,6 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention.py::_fa_kernel  (via flash_attention)
+// for float32 with T > 1 (the wrapper's dispatch: bf16 with T > 1 goes to
+// csrc/flash_attention_tc.cu, T = 1 to csrc/flash_attention_decode.cu).
 //
 // q is (B, T, H, hd), k and v (B, S, KVH, hd), out (B, T, H, hd), each
 // addressed through its own batch, sequence and head strides (the last
@@ -14,7 +16,7 @@
 // -1e30 of the TPU kernel, so a query that sees no key at all (T > S)
 // averages V over every key, as the reference does; keys past S do not
 // exist (nothing is padded).  Softmax statistics and both products are in
-// float32; the output is stored in the input type (f32 or bf16).
+// float32, as is the output.
 //
 // What bounds it on the H100: at the serving path's prefill (B 2, H 16,
 // KVH 2, T = S = 4096, hd 128) the causal work is 137 GFLOP, 0.139 ms at the
@@ -90,43 +92,11 @@ __device__ __forceinline__ Row block_row(const Args& a, int row, int bx) {
   return {t, kvh * a.G + g, row / a.Gb < a.Tq && g < a.G && t < a.T};
 }
 
-// 16 bytes of T in shared memory, widened to float32 (bf16 exactly).
+// 16 bytes of T in shared memory, widened to float32.
 template <typename T>
 struct Piece {
   static constexpr int kN = 16 / static_cast<int>(sizeof(T));
 };
-
-__device__ __forceinline__ void widen(const float* p, float* f) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
-}
-
-__device__ __forceinline__ void widen(const __nv_bfloat16* p, float* f) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {             // little-endian: element 2i low
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const auto s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {   // all but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // Start the copy of keys kb .. kb + nk - 1 of K and V into one stage.
 template <typename T, int HD>
@@ -202,7 +172,7 @@ fa_fwd_kernel(const Args a) {
       stage<T, HD>(ks + next, vs + next, kp, vp, a, kb + kBK,
                    min(kBK, k_end - kb - kBK));
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();                           // this block has landed
     // The shuffle needs the whole warp: a warp runs the arithmetic when
     // any of its rows is live, and `nk` is the same for all of it.
@@ -336,7 +306,7 @@ fa_merge_kernel(const Args a) {
 template <typename T, int HD>
 int launch(const Args& a, int B, int KVH, cudaStream_t stream) {
   constexpr int kSmem = 4 * kBK * HD * static_cast<int>(sizeof(T));
-  // above 48 KB (hd 128 in f32 or bf16) only after this opt-in
+  // above 48 KB (hd 128) only after this opt-in
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
@@ -413,7 +383,6 @@ extern "C" int fedsikd_flash_attention(
   const auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return launch_hd<float>(a, B, KVH, hd, st);
-    case kBF16: return launch_hd<__nv_bfloat16>(a, B, KVH, hd, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

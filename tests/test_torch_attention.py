@@ -141,3 +141,154 @@ def test_wrapper_checks_shapes():
                             torch.zeros(1, 5, 2, 32))
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, q, q, window=-1)
+
+
+# ---------------------------------------------------------------------------
+# The Hopper kernels' planners, dispatch and counters, and the tensor-core
+# kernel's arithmetic written out in torch.
+
+SERVING_DECODE = [(2, 4097, 16, 2), (2, 4128, 16, 2)]     # B, S, H, KVH
+
+
+@pytest.mark.parametrize("B,S,H,KVH,causal,window", [
+    *[(*shape, True, 0) for shape in SERVING_DECODE],
+    (1, 1, 4, 4, True, 0),          # one key, G = 1
+    (2, 97, 16, 2, True, 0),
+    (1, 100, 128, 1, True, 0),      # G = 128: 16 blocks of 8 heads
+    (1, 200_000, 48, 8, True, 0),   # G = 6 (a padded head), spans capped
+    (1, 300, 4, 2, True, 50),       # the window: keys [250, 300)
+    (1, 300, 4, 2, False, 50),      # no causal mask: the window is unused
+])
+def test_decode_plan_covers_the_visible_keys(B, S, H, KVH, causal, window):
+    p = fa.decode_plan(B, S, H, KVH, causal=causal, window=window)
+    G = H // KVH
+    visible = min(S, window) if causal and window else S
+    assert p["lo"] == S - visible
+    assert p["span_len"] % fa.DECODE_SPAN_ALIGN == 0
+    assert 1 <= p["n_span"] <= fa.DECODE_MAX_SPANS
+    assert p["n_span"] * p["span_len"] >= visible     # the spans cover S
+    assert (p["n_span"] - 1) * p["span_len"] < visible   # none is empty
+    heads = p["heads"]
+    assert heads in (1, 2, 4, 8) and heads <= max(1, 2 * G - 1)
+    assert p["n_gblk"] * heads >= G > (p["n_gblk"] - 1) * heads
+    assert p["blocks"] == B * KVH * p["n_gblk"] * p["n_span"]
+    if (B, S, H, KVH) in SERVING_DECODE:
+        assert p["blocks"] >= 132                     # every SM of an H100
+
+
+@pytest.mark.parametrize("T,S,causal,window", [
+    (4096, 4096, True, 0),          # the serving prefill
+    (96, 40, True, 0),              # T > S: rows that see no key
+    (512, 512, True, 128),
+    (100, 300, False, 0),
+])
+def test_tensor_core_plan_walks_the_visible_tiles_heaviest_first(
+        T, S, causal, window):
+    B, H = 2, 16
+    p = fa.tc_plan(B, T, S, H, causal=causal, window=window)
+    assert (p["grid_x"], p["grid_y"]) == (B * H, -(-T // fa.TC_ROWS))
+    tiles = p["key_tiles"]
+    assert min(tiles) >= 1 and max(tiles) <= -(-S // fa.TC_BLOCK_K)
+    mask = (fa.causal_mask(T, S, offset=S - T, window=window) if causal
+            else torch.ones(T, S, dtype=torch.bool))
+    for y, n in enumerate(tiles):       # every key a row sees is walked
+        t0 = (p["grid_y"] - 1 - y) * fa.TC_ROWS
+        rows = mask[t0:t0 + fa.TC_ROWS]
+        seen = rows.any(dim=0).nonzero()
+        if bool(rows.any(dim=1).all()) and len(seen):
+            assert int(seen.max()) - int(seen.min()) < n * fa.TC_BLOCK_K
+        else:                           # a row sees none: every key
+            assert n == -(-S // fa.TC_BLOCK_K)
+    if causal and T == S and not window:
+        assert tiles == sorted(tiles, reverse=True)   # heaviest first
+        assert tiles[0] == p["grid_y"]
+
+
+def test_dispatch_is_by_dtype_and_query_length():
+    assert fa.variant(torch.float32, 1) == "decode"
+    assert fa.variant(torch.bfloat16, 1) == "decode"
+    assert fa.variant(torch.bfloat16, 2) == "tensor_core"
+    assert fa.variant(torch.bfloat16, 4096) == "tensor_core"
+    assert fa.variant(torch.float32, 4096) == "v1"
+    assert fa.VARIANTS == ("v1", "tensor_core", "decode")
+
+
+def test_reset_launches_zeroes_the_variant_counts():
+    from repro_torch.kernels import launch_counts, reset_launches
+    fa.flash_attention.launches = 3
+    fa.flash_attention.variant_launches.update(v1=1, tensor_core=1, decode=1)
+    reset_launches()
+    assert fa.flash_attention.variant_launches == dict.fromkeys(
+        fa.VARIANTS, 0)
+    assert launch_counts()["flash_attention"] == 0
+    ops.flash_attention(torch.ones(1, 4, 2, 32), torch.ones(1, 6, 1, 32),
+                        torch.ones(1, 6, 1, 32))          # CPU: plain
+    assert fa.flash_attention.variant_launches == dict.fromkeys(
+        fa.VARIANTS, 0)
+
+
+def _tensor_core_arithmetic(q, k, v, *, split: bool = True):
+    """The tensor-core kernel's arithmetic in torch (causal, no window):
+    64-key tiles; S = Q K^T from bf16 operands with float32 sums (each
+    product exact), ``scale`` on the float32 scores; masked scores -1e30;
+    the online softmax from m = -1e30; P = exp(S - m) in float32, split into
+    P_hi = bf16(P) and P_lo = bf16(P - P_hi) for the two products with V
+    (``split=False``: P rounded once to bf16); l the sum of the unrounded
+    P; the output rounded once to bf16."""
+    B, T, H, hd = q.shape
+    S, G = k.shape[1], H // k.shape[2]
+    qf = q.float().transpose(1, 2)                          # (B, H, T, hd)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    seen = fa.causal_mask(T, S, offset=S - T)
+    m = torch.full((B, H, T, 1), fa.NEG)
+    l = torch.zeros(B, H, T, 1)
+    o = torch.zeros(B, H, T, hd)
+    for kb in range(0, S, fa.TC_BLOCK_K):
+        ke = min(S, kb + fa.TC_BLOCK_K)
+        s = (qf @ kf[:, :, kb:ke].transpose(-1, -2)) * hd ** -0.5
+        s = s.masked_fill(~seen[:, kb:ke], fa.NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, kb:ke]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, kb:ke]
+        o, m = o * alpha + pv, m_new
+    return (o / l).transpose(1, 2).bfloat16()
+
+
+def _outside_fa_tol(got, want):
+    """How many outputs break ``chip_smoke.FA_TOL`` in bf16."""
+    rtol, atol = TOL["bfloat16"]
+    g, w = got.float(), want.float()
+    return int(((g - w).abs() > atol + rtol * w.abs()).sum())
+
+
+@pytest.mark.parametrize("B,H,KVH,T,S,hd", [
+    (1, 4, 2, 512, 512, 128),       # causal prefill
+    (1, 16, 2, 1, 4128, 128),       # a serving decode shape
+])
+def test_tensor_core_arithmetic_matches_plain_in_bf16(B, H, KVH, T, S, hd):
+    """Split P keeps the weights to float32 accuracy: every output within
+    the card's bf16 tolerance (one rounding of the output) of the plain
+    version."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    assert chip_smoke.FA_TOL["bfloat16"] == TOL["bfloat16"]
+    _, (q, k, v) = _both(_inputs(S + T, B, H, KVH, T, S, hd), "bfloat16")
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert _outside_fa_tol(_tensor_core_arithmetic(q, k, v), want) == 0
+
+
+def test_rounding_p_once_to_bf16_breaks_the_tolerance():
+    """The design's numerical argument: with P rounded once to bf16 for
+    the product with V, thousands of the prefill shape's outputs fall
+    outside the one-rounding tolerance that split P meets."""
+    _, (q, k, v) = _both(_inputs(1024, 1, 4, 2, 512, 512, 128), "bfloat16")
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert _outside_fa_tol(_tensor_core_arithmetic(q, k, v, split=False),
+                           want) > 1000

@@ -242,6 +242,9 @@ def test_flash_attention_matches_plain(dev, shape, dtype):
     torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
                                atol=atol)
     assert launch_counts()["flash_attention"] == 1
+    kind = fa.variant(dtype, T)
+    assert fa.flash_attention.variant_launches == {
+        name: int(name == kind) for name in fa.VARIANTS}
 
 
 def test_flash_attention_fully_masked_rows_average_v(dev):
@@ -254,6 +257,26 @@ def test_flash_attention_fully_masked_rows_average_v(dev):
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
     mean_v = v.mean(dim=1).repeat_interleave(2, dim=1)       # (B, H, hd)
     torch.testing.assert_close(out[:, 0], mean_v, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_fully_masked_rows_average_v_bf16(dev):
+    """The same in bf16, on the tensor-core kernel: the first 56 queries see
+    no key and average V over all 40 keys (the -1e30 mask), the rest see a
+    causal prefix; both to ``chip_smoke.FA_TOL`` (one rounding of the
+    output)."""
+    q, k, v = chip_smoke._fa_inputs((1, 4, 2, 96, 40, 64, 0), torch.bfloat16,
+                                    3, dev)
+    reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.variant_launches["tensor_core"] == 1
+    rtol, atol = chip_smoke.FA_TOL["bfloat16"]
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    mean_v = v.float().mean(dim=1).repeat_interleave(2, dim=1)  # (B, H, hd)
+    torch.testing.assert_close(out[:, :56].float(),
+                               mean_v[:, None].expand(-1, 56, -1, -1)
+                               .bfloat16().float(), rtol=rtol, atol=atol)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
@@ -318,5 +341,10 @@ def test_lm_prefill_and_decode_on_the_card_match_cpu(dev):
     reset_launches()
     got = _serve(cfg, params, toks, T, dev)
     assert launch_counts()["flash_attention"] == cfg.num_layers * (1 + extra)
+    # float32: the prefill on the v1 kernel, every decode step on the
+    # decode kernel
+    assert fa.flash_attention.variant_launches == {
+        "v1": cfg.num_layers, "tensor_core": 0,
+        "decode": cfg.num_layers * extra}
     print(f"lm card-vs-cpu max abs gap {float((got - want).abs().max())}")
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
