@@ -14,10 +14,12 @@ weights from a seed): a prefill of 2 x 4096 tokens and 32 greedy decode
 steps through ``make_prefill_step`` / ``make_decode_step``, with every
 attention in a flash-attention kernel (the bf16 prefill on the tensor-core
 kernel, every decode step on the decode kernel).  It checks that each path
-went through its kernels, holds the packed engine's per-round accuracy and
-losses to the loop engine's and a float32 2-layer serve's decode logits to
-a full forward of the same tokens, times every kernel beside its bound,
-and prints one JSON object per line.  The last line is
+went through its kernels (the loop engine's merge one multi-leaf launch a
+round, the clustering step's 255 k-means calls on the split kernel),
+holds the packed engine's per-round accuracy and losses to the loop
+engine's and a float32 2-layer serve's decode logits to a full forward of
+the same tokens, times every kernel beside its bound, and prints one JSON
+object per line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 any failed phase raises, so the script exits non-zero and never prints it.
 It imports nothing of JAX and nothing of the JAX package.
@@ -210,15 +212,46 @@ def _merge_inputs(N, D, dtype, seed, stale: bool):
     return (x.to(DEV, dtype), w.to(DEV), torch.from_numpy(s).to(DEV))
 
 
-def _kmeans_inputs(N, K, seed):
+def _student_rows(N, dtypes, seed, *, offset: int = 0, device=None):
+    """N clients' copies of the MNIST student's ten leaves as separate
+    tensors on ``device`` (default ``DEV``; leaf l in ``dtypes[l %
+    len(dtypes)]``): the loop engine's merge input, with host-side weights
+    and staleness.  With ``offset`` > 0 every odd client's leaves are views
+    into a buffer that starts ``offset`` elements in (rows not 16-byte
+    aligned, contiguous all the same).  ``tests/test_torch_cuda.py`` builds
+    its merge inputs here too."""
+    import numpy as np
+    import torch
+    from repro_torch.models.cnn import MnistCNN
+    shapes = [p.shape for p in MnistCNN(student=True).parameters()]
+    r = np.random.default_rng(seed)
+    rows = []
+    for n in range(N):
+        row = []
+        for l, sh in enumerate(shapes):
+            v = torch.from_numpy((r.standard_normal(sh) * 2).astype(np.float32))
+            dtype = dtypes[l % len(dtypes)]
+            if offset and n % 2:
+                t = torch.empty(v.numel() + offset, dtype=dtype,
+                                device=device or DEV)[offset:].view(sh)
+                t.copy_(v)
+            else:
+                t = v.to(device or DEV, dtype)
+            row.append(t)
+        rows.append(row)
+    w = (np.abs(r.standard_normal(N)) + 0.1).astype(np.float32)
+    return rows, w, r.integers(0, 4, N).astype(np.float32)
+
+
+def _kmeans_inputs(N, K, seed, F=KM_F):
     """Standard-normal points and centroids: at F = 2352 the gaps between a
     point's K distances are ~100 while the rounding is ~1e-3, so no
     assignment sits on a near-tie."""
     import numpy as np
     import torch
     r = np.random.default_rng(seed)
-    x = torch.from_numpy(r.standard_normal((N, KM_F)).astype(np.float32))
-    c = torch.from_numpy(r.standard_normal((K, KM_F)).astype(np.float32))
+    x = torch.from_numpy(r.standard_normal((N, F)).astype(np.float32))
+    c = torch.from_numpy(r.standard_normal((K, F)).astype(np.float32))
     return x.to(DEV), c.to(DEV)
 
 
@@ -312,21 +345,52 @@ def phase_kernel_checks():
         e = check_close(f"fused_merge N={N} D={D} {str(dtype)[6:]} "
                         f"decay={decay}", out, out_p, tol, tol)
         errs["fused_merge"] = max(errs["fused_merge"], e)
+    # the multi-leaf entry: one launch for the student's ten leaves
+    for N, dtype, decay, offset, tol, seed in (
+            (40, torch.float32, 0.5, 0, 1e-5, 13),
+            (300, torch.float32, 1.5, 0, 1e-5, 14),
+            (40, torch.bfloat16, 0.0, 0, 2e-2, 15),
+            (40, torch.float32, 0.5, 1, 1e-5, 16)):
+        rows, w, s = _student_rows(N, (dtype,), seed, offset=offset)
+        before = dict(fm.fused_merge.variant_launches)
+        out = fm.fused_merge_leaves(rows, w, s, decay=decay)
+        want = fm.fused_merge_leaves_plain(rows, w, s, decay=decay)
+        torch.cuda.synchronize()
+        took = {k: v - before[k] for k, v in
+                fm.fused_merge.variant_launches.items()}
+        tag = (f"fused_merge_leaves N={N} 10 student leaves "
+               f"{str(dtype)[6:]} decay={decay}"
+               + (" misaligned rows" if offset else ""))
+        if took != {"leaf": 0, "leaves": 1}:
+            raise RuntimeError(f"{tag}: expected one 'leaves' launch, "
+                               f"counted {took}")
+        e = max(check_close(f"{tag} leaf {l}", o, ref, tol, tol)
+                for l, (o, ref) in enumerate(zip(out, want)))
+        errs["fused_merge"] = max(errs["fused_merge"], e)
     errs["kmeans_assign"] = 0.0
-    for N, K, seed in [(KM_N, k, 7 + k) for k in (2, 3, 4, 5)] + [
-            (16384, 8, 12)]:
-        x, c = _kmeans_inputs(N, K, seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N, K, F, seed in [(KM_N, k, KM_F, 7 + k) for k in (2, 3, 4, 5)] + [
+            (16384, 8, KM_F, 12), (16384, 16, KM_F, 17),
+            (KM_N, 5, KM_F - 2, 18), (16384, 8, KM_F - 2, 19)]:
+        x, c = _kmeans_inputs(N, K, seed, F)
+        regime = km.plan(N, F, K, sms)["regime"]
+        before = dict(km.kmeans_assign.variant_launches)
         a, d = km.kmeans_assign(x, c)
         a_p, d_p = km.kmeans_assign_plain(x, c)
         torch.cuda.synchronize()
+        took = [k for k, v in km.kmeans_assign.variant_launches.items()
+                if v != before[k]]
+        tag = f"kmeans_assign N={N} F={F} K={K} [{regime}]"
+        if took != [regime]:
+            raise RuntimeError(f"{tag}: the plan says {regime}, the call "
+                               f"launched {took}")
         differ = int((a != a_p).sum())
-        emit({"check": f"kmeans_assign N={N} F={KM_F} K={K} assignments",
-              "differing": differ, "ok": differ == 0})
+        emit({"check": f"{tag} assignments", "differing": differ,
+              "ok": differ == 0})
         if differ:
-            raise RuntimeError(f"kmeans_assign N={N} K={K}: {differ} "
-                               "assignments differ from the plain version")
-        e = check_close(f"kmeans_assign N={N} F={KM_F} K={K} dist", d, d_p,
-                        1e-4, 1e-4)
+            raise RuntimeError(f"{tag}: {differ} assignments differ from the "
+                               "plain version")
+        e = check_close(f"{tag} dist", d, d_p, 1e-4, 1e-4)
         errs["kmeans_assign"] = max(errs["kmeans_assign"], e)
     errs["flash_attention"] = 0.0
     errs["flash_attention_decode"] = 0.0
@@ -417,16 +481,18 @@ def phase_fused_distill(ds):
 # ------------------------------------------------------------------ phase 4
 def phase_main_path(ds):
     from repro_torch.fed.rounds import FedConfig, run_federated
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.models.cnn import MnistCNN
 
     cfg = FedConfig(algorithm="fedsikd", engine="loop", rounds=ROUNDS)
-    leaves = len(list(MnistCNN(student=True).parameters()))
     reset_launches()
     t0 = time.perf_counter()
     h = run_federated(ds, cfg, device=DEV)
     total = time.perf_counter() - t0
     counts = launch_counts()
+    merge_variants = dict(fm.fused_merge.variant_launches)
+    km_variants = dict(km.kmeans_assign.variant_launches)
     emit({"phase": "main_path", "config": "fedsikd loop mnist 40 clients "
           f"alpha=0.5 batch=64 warmup=3 rounds={ROUNDS}",
           "acc": h["acc"], "loss": h["loss"],
@@ -434,11 +500,20 @@ def phase_main_path(ds):
           "student_loss": h["student_loss"],
           "round_seconds": h["round_seconds"],
           "num_clusters": h["num_clusters"], "participants":
-          h["participants"], "seconds_total": total, "launches": counts})
-    if counts["fused_merge"] != ROUNDS * leaves:
-        raise RuntimeError(f"expected {ROUNDS} x {leaves} fused-merge "
-                           f"launches, counted {counts['fused_merge']}")
+          h["participants"], "seconds_total": total, "launches": counts,
+          "fused_merge_variants": merge_variants,
+          "kmeans_assign_variants": km_variants})
+    # one merge a round, every leaf of the student in one launch
+    if (counts["fused_merge"] != ROUNDS
+            or merge_variants != {"leaf": 0, "leaves": ROUNDS}):
+        raise RuntimeError(f"expected {ROUNDS} fused-merge launches, all "
+                           f"'leaves', counted {counts['fused_merge']} "
+                           f"({merge_variants})")
     want_km = expected_kmeans_launches(cfg, cfg.num_clients)
+    if km_variants != {"split": want_km, "stream": 0}:
+        raise RuntimeError(f"expected the clustering step's {want_km} "
+                           f"kmeans_assign launches on the split kernel, "
+                           f"counted {km_variants}")
     if counts["kmeans_assign"] != want_km:
         raise RuntimeError(f"expected {want_km} kmeans_assign launches in "
                            f"the clustering step, counted "
@@ -557,6 +632,15 @@ def _serve(cfg, params, prompt, n_decode: int):
     return logits, torch.cat(toks, dim=1), t1 - t0, t2 - t1
 
 
+def _count_requiring_grad(tree) -> int:
+    """Tensors in a nest of dicts, lists and tuples that require grad."""
+    if isinstance(tree, dict):
+        return sum(_count_requiring_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_count_requiring_grad(v) for v in tree)
+    return int(bool(getattr(tree, "requires_grad", False)))
+
+
 def _lm_prompt(cfg):
     import numpy as np
     import torch
@@ -583,6 +667,13 @@ def phase_lm_serve(smi):
 
     cfg = get_config(LM_ARCH)
     params = tf.init_lm(LM_SEED, cfg, device=DEV)
+    # the flash kernels refuse inputs that need a gradient: serving's
+    # weights must not require one
+    needs_grad = _count_requiring_grad(params)
+    if needs_grad:
+        raise RuntimeError(f"init_lm made {needs_grad} tensors that require "
+                           "grad; serving would reach the flash kernels' "
+                           "no-backward guard")
     prompt = _lm_prompt(cfg)
     _serve(cfg, params, prompt, 2)                       # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -599,7 +690,8 @@ def phase_lm_serve(smi):
           f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
           f"{cfg.num_kv_heads} heads, head_dim {cfg.hd}, vocab "
           f"{cfg.vocab_size}), {cfg.dtype}, random weights seed {LM_SEED}",
-          "params": cfg.param_count(), "batch": LM_B, "prompt": LM_PROMPT,
+          "params": cfg.param_count(), "params_requiring_grad": needs_grad,
+          "batch": LM_B, "prompt": LM_PROMPT,
           "decode_steps": LM_DECODE, "prefill_ms": pre_s * 1e3,
           "prefill_tokens_per_s": LM_B * LM_PROMPT / pre_s,
           "decode_ms_per_token": dec_s * 1e3 / LM_DECODE,
@@ -673,35 +765,58 @@ def _kd_timing(T, V, dtype, seed):
 
 
 def _merge_round_timing():
-    """One round's ten per-leaf merges of the MNIST student (N = 40)."""
+    """One round's merge of the MNIST student, 40 client dicts of its ten
+    leaves (no staleness, as on the main path), in one call: the one-launch
+    multi-leaf entry the path takes (``ms``; ``device_us`` its kernel,
+    ``device_all_us`` every device event of a call, the table's copy
+    included); the earlier path written out (a torch.stack of the clients'
+    copies and one single-leaf launch a leaf); the plain version; and
+    ``w @ x`` per leaf on ready stacks (the library column)."""
+    import numpy as np
     import torch
     from repro_torch.kernels import fused_merge as fm
-    from repro_torch.models.cnn import MnistCNN
-    sizes = [p.numel() for p in MnistCNN(student=True).parameters()]
-    stacks = [_merge_inputs(40, d, torch.float32, 10 + i, False)
-              for i, d in enumerate(sizes)]
-    wn = [(w / w.sum()) for _, w, _ in stacks]
-    nbytes = sum(x.numel() * 4 + 2 * 40 * 4 + x.shape[1] * 4
-                 for x, _, _ in stacks)
-    nops = sum(2 * x.numel() for x, _, _ in stacks)
-    out = {
-        "ms": time_ms(lambda: [fm.fused_merge(x, w, s) for x, w, s in stacks]),
-        "plain_ms": time_ms(lambda: [fm.fused_merge_plain(x, w, s)
-                                     for x, w, s in stacks]),
-        "library_ms": time_ms(lambda: [v @ x for v, (x, _, _)
-                                       in zip(wn, stacks)]),
-        "leaf_sizes": sizes, "bytes": nbytes}
+    rows, w, _ = _student_rows(40, (torch.float32,), 10)
+    s = np.zeros_like(w)
+    N, L = len(rows), len(rows[0])
+    wd, sd = torch.from_numpy(w).to(DEV), torch.from_numpy(s).to(DEV)
+    stacks = [torch.stack([r[l] for r in rows]).reshape(N, -1)
+              for l in range(L)]
+    wn = wd / wd.sum()
+    sizes = [x.shape[1] for x in stacks]
+    nbytes = sum(N * D * 4 + 2 * N * 4 + D * 4 for D in sizes)
+    nops = sum(2 * N * D for D in sizes)
+
+    def leaves():
+        return fm.fused_merge_leaves(rows, w, s)
+
+    def earlier():
+        return [fm.fused_merge(torch.stack([r[l] for r in rows])
+                               .reshape(N, -1), wd, sd) for l in range(L)]
+    out = {"ms": time_ms(leaves),
+           "device_us": device_us(leaves, ("fused_merge_leaves_kernel",)),
+           "device_all_us": device_us(leaves, ("",)),
+           "earlier_path_ms": time_ms(earlier),
+           "earlier_path_device_all_us": device_us(earlier, ("",)),
+           "plain_ms": time_ms(lambda: fm.fused_merge_leaves_plain(rows, w,
+                                                                   s)),
+           "library_ms": time_ms(lambda: [wn @ x for x in stacks]),
+           "leaf_sizes": sizes, "bytes": nbytes}
     out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops)
     return out
 
 
 def _kmeans_timing(N, K, seed):
-    """One assignment call at (N, 2352, K) beside its bound, the plain
-    version and ``torch.cdist(x, c).min(1)`` (the library column)."""
+    """One assignment call at (N, 2352, K) beside its bound, its device
+    time (the profiler), the plain version and ``torch.cdist(x, c).min(1)``
+    (the library column)."""
     import torch
     from repro_torch.kernels import kmeans_assign as km
     x, c = _kmeans_inputs(N, K, seed)
-    out = {"ms": time_ms(lambda: km.kmeans_assign(x, c)),
+    out = {"regime": km.plan(N, KM_F, K, torch.cuda.get_device_properties(0)
+                             .multi_processor_count)["regime"],
+           "ms": time_ms(lambda: km.kmeans_assign(x, c)),
+           "device_us": device_us(lambda: km.kmeans_assign(x, c),
+                                  ("kmeans_assign_",)),
            "plain_ms": time_ms(lambda: km.kmeans_assign_plain(x, c)),
            "library_ms": time_ms(lambda: torch.cdist(x, c).min(1))}
     nbytes = (N * KM_F + K * KM_F) * 4 + N * 8
@@ -794,8 +909,8 @@ def phase_timing(errs, path_counts, variants, smi):
         f, b = _kd_timing(2048, 32000, dtype, 21)
         emit({"timing": f"kd T=2048 V=32000 {str(dtype)[6:]}",
               "fwd": f, "bwd": b, "card": smi})
-    emit({"timing": "fused_merge, one round (10 leaves, N=40)", **merge,
-          "card": smi})
+    emit({"timing": "fused_merge, one round (10 leaves, N=40, one launch)",
+          **merge, "card": smi})
     fa_prefill = _fa_timing(FA_PREFILL, 30)
     fa_decode = _fa_timing(FA_DECODE[-1], 31)
     emit({"timing": "flash_attention, the served model's decode step",
@@ -815,14 +930,16 @@ def phase_timing(errs, path_counts, variants, smi):
         {"name": "fused_merge", "route": "cuda",
          "source": src + "fused_merge.cu",
          "replaces": "src/repro/kernels/fused_merge.py:30",
-         "shape": "N=40, the 10 student leaves of one round",
-         **{k: merge[k] for k in ("ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by")},
+         "shape": "N=40, the 10 student leaves of one round, one launch",
+         **{k: merge[k] for k in ("ms", "device_us", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "earlier_path_ms")},
          "path": "run_federated loop"},
         {"name": "kmeans_assign", "route": "cuda",
          "source": src + "kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:16",
          "shape": f"N={KM_N} F={KM_F} K=5 float32, one call", **km_path,
+         "large": {"shape": f"N=16384 F={KM_F} K=8", **km_big},
          "path": "run_federated packed (clustering step)"},
         {"name": "flash_attention", "route": "cuda",
          "replaces": "src/repro/kernels/flash_attention.py:22",
@@ -843,9 +960,10 @@ def phase_timing(errs, path_counts, variants, smi):
 
 
 # ---------------------------------------------------------- --profile mode
-PORT_KERNELS = ("kd_fwd_kernel", "kd_bwd_kernel", "fused_merge_kernel",
-                "kmeans_assign_kernel", "fa_fwd_kernel", "fa_merge_kernel",
-                "fa_tc_kernel", "fa_decode_kernel")
+PORT_KERNELS = ("kd_fwd_kernel", "kd_bwd_kernel", "fused_merge_leaves_kernel",
+                "kmeans_assign_split_kernel", "kmeans_assign_stream_kernel",
+                "fa_fwd_kernel", "fa_merge_kernel", "fa_tc_kernel",
+                "fa_decode_kernel")
 # substrings that sort device kernels into groups, tried in order (cuBLAS's
 # "xmma_gemm" before cuDNN's "xmma" convolutions)
 KERNEL_GROUPS = (("port", PORT_KERNELS),

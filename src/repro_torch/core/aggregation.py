@@ -9,15 +9,15 @@ with its base weight decayed by (1 + s)^(-a), renormalised over the round's
 contributions.
 
 Parameters are dicts of tensors.  Every weighted merge goes through ONE
-fused contraction per leaf (``_fused_merge`` -> ``kernels.ops.fused_merge``):
-the CUDA kernel for tensors on the card, its plain version on the CPU.
+fused contraction over all leaves (``_fused_merge`` ->
+``kernels.ops.fused_merge_leaves``): one CUDA kernel launch a dtype for
+tensors on the card, its plain version leaf by leaf on the CPU.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
-import torch
 
 from repro_torch.kernels import ops as _kops
 
@@ -25,18 +25,13 @@ from repro_torch.kernels import ops as _kops
 def _fused_merge(params: Sequence[dict], base_weights, staleness=None, *,
                  decay: float = 0.0) -> dict:
     """Merge N param dicts under staleness-decayed, renormalised weights:
-    out = sum_i w_i(1+s_i)^-decay p_i / sum_j w_j(1+s_j)^-decay, one fused
-    contraction per leaf, cast back to each leaf's dtype."""
-    n = len(params)
-    dev = next(iter(params[0].values())).device
-    w = torch.as_tensor(np.asarray(base_weights, np.float32), device=dev)
-    s = torch.as_tensor(np.zeros(n, np.float32) if staleness is None
-                        else np.asarray(staleness, np.float32), device=dev)
-    out = {}
-    for key, leaf in params[0].items():
-        stacked = torch.stack([p[key] for p in params])
-        out[key] = _kops.fused_merge(stacked, w, s, decay=decay).to(leaf.dtype)
-    return out
+    out = sum_i w_i(1+s_i)^-decay p_i / sum_j w_j(1+s_j)^-decay, every leaf
+    in one fused contraction (one kernel launch a dtype on the card, each
+    client's leaf read where it lies), cast back to each leaf's dtype."""
+    keys = list(params[0])
+    merged = _kops.fused_merge_leaves([[p[k] for k in keys] for p in params],
+                                      base_weights, staleness, decay=decay)
+    return {k: m.to(params[0][k].dtype) for k, m in zip(keys, merged)}
 
 
 def weighted_average(params: Sequence[dict], weights: Sequence[float]):

@@ -3,9 +3,12 @@ plain versions and public entry points (``ops``).
 
 ``KERNELS`` maps each kernel's name to its wrapper; every wrapper carries a
 ``launches`` count that goes up by one where it launches its kernel.
-``flash_attention`` also counts its calls by the kernel each took
-(``variant_launches``: ``v1``, ``tensor_core``, ``decode``);
-``reset_launches`` zeroes those too.
+Three also count their launches by kind (``variant_launches``):
+``flash_attention`` by the kernel each call took (``v1``, ``tensor_core``,
+``decode``), ``fused_merge`` by entry (``leaf``: one (N, D) stack,
+``leaves``: every leaf of N clients' parameters in one launch) and
+``kmeans_assign`` by regime (``split``, ``stream``); ``reset_launches``
+zeroes those too.
 """
 from repro_torch.kernels import (flash_attention, fused_merge, kd_softmax_kl,
                                  kmeans_assign, ops, ref)
@@ -22,9 +25,10 @@ KERNELS = {
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    counts = flash_attention.flash_attention.variant_launches
-    for kind in counts:
-        counts[kind] = 0
+    for fn in (flash_attention.flash_attention, fused_merge.fused_merge,
+               kmeans_assign.kmeans_assign):
+        for kind in fn.variant_launches:
+            fn.variant_launches[kind] = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -40,10 +40,13 @@ SIGNATURES = {
                        ctypes.c_int, ctypes.c_float, ctypes.c_float, _P),
     "fedsikd_kd_bwd": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, ctypes.c_float, _P),
-    "fedsikd_fused_merge": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                            ctypes.c_int, ctypes.c_float, _P),
-    "fedsikd_kmeans_assign": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_int, _P),
+    # row-pointer table, tile table, w, s, out; N, n_tiles, dtype; decay;
+    # stream
+    "fedsikd_fused_merge": (_P,) * 5 + (ctypes.c_int,) * 3
+    + (ctypes.c_float, _P),
+    # x, cents, assign, dist; N; F, K, regime, grid, slice_len, vec; stream
+    "fedsikd_kmeans_assign": (_P,) * 4 + (ctypes.c_longlong,)
+    + (ctypes.c_int,) * 6 + (_P,),
     # q, k, v, out, part_acc, part_ml; (batch, seq, head) strides of q, k,
     # v, out; B, T, S, H, KVH, hd, causal, window; scale; n_split,
     # split_len, dtype; stream

@@ -28,7 +28,7 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
 }
 
-// 16 bytes of T in memory widened to float32 (bf16 exactly).
+// 16 bytes of T in memory widened to float32 (bf16 and f16 exactly).
 __device__ __forceinline__ void widen(const float* p, float* f) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   f[0] = v.x;
@@ -44,6 +44,17 @@ __device__ __forceinline__ void widen(const __nv_bfloat16* p, float* f) {
   for (int i = 0; i < 4; ++i) {             // little-endian: element 2i low
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void widen(const __half* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __half22float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
   }
 }
 

@@ -1,86 +1,161 @@
-// Fused grouped weighted-mean merge with staleness decay, hand-written for
-// Hopper (sm_90a).
+// Fused grouped weighted-mean merge with staleness decay over ALL leaves of
+// a parameter dict in one launch, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/fused_merge.py::_kernel  (via fused_merge)
 //
-//   out[d] = sum_n w_n (1+s_n)^-decay x[n, d] / sum_m w_m (1+s_m)^-decay
+//   out_l[d] = sum_n w_n (1+s_n)^-decay x_{n,l}[d] / sum_m w_m (1+s_m)^-decay
 //
-// x is (N, D) in f32, bf16 or f16; w and s are (N,) f32; out is (D,) f32.
+// for every leaf l of N clients' parameter dicts.  Each client's leaf is
+// read where it lies: a device table holds one row pointer per (leaf,
+// client), leaf-major, so nothing is stacked first.  The outputs go to one
+// flat float32 buffer at the column offsets the wrapper chose
+// (kernels/fused_merge.py::merge_plan).  x is f32, bf16 or f16, one dtype
+// per launch; w and s are (N,) f32.  The single-leaf entry launches the same
+// kernel with one leaf (its row pointers are the rows of its (N, D) stack).
 //
-// What bounds it on the H100: bytes.  It reads x once (N*D elements) and
-// writes D floats, with one multiply-add per element read.  On the
-// federated main path N = 40 clients and D is one leaf of the MNIST student
-// (10 to 9216 floats), so a round's ten merges read 3.06 MB, about 0.9 us at
-// 3.35 TB/s: each launch costs far more than its bytes.
+// What bounds it on the H100: bytes.  A FedSiKD round merges the ten leaves
+// of the MNIST student over N = 40 clients, 3.06 MB read once, about 0.9 us
+// at 3.35 TB/s, so latency and launches decide its time.  The first design
+// (one thread a column walking N in one dependent chain, one launch a leaf
+// after a torch.stack of the clients' copies) took 10 launches of about 6.6
+// us plus 10 stacks a round.
 //
-// Why the design is simple: the TPU kernel recomputes the normalised weight
-// vector for every D block it visits in its sequential grid.  Here every
-// block does the same: it first reduces the decayed weight total, then walks
-// N in chunks of blockDim weights staged in shared memory, and each thread
-// owns one column d and accumulates sum_n w_n' x[n, d] in a float32
-// register.  Neighbouring threads read neighbouring columns, so each row
-// chunk is one coalesced read.  No atomics and no second pass: the output
-// is deterministic.  One launch for all leaves of a model, and a split of N
-// across blocks when D is small, are left to later work.
+// What this design does about it:
+//  - one launch a merge: blocks take tiles of 32 x (16 bytes) columns of the
+//    concatenated column space; a tile never crosses a leaf boundary, and a
+//    small tile table (out offset, column in the leaf, leaf, width, 16-byte
+//    flag) tells each block where it is, so the ten leaves give 154 blocks
+//    in float32;
+//  - the normalised decayed weights are computed once a block into shared
+//    memory (in chunks of kChunk clients, so any N works);
+//  - the 8 warps split N, and each thread keeps up to kUnroll independent
+//    16-byte loads in flight (scalar loads on a ragged edge, or for a leaf
+//    whose rows are not all 16-byte aligned);
+//  - the warps' partial sums are added through shared memory in warp order:
+//    no atomics, the output is deterministic.
 #include "common.cuh"
 
 namespace fedsikd {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 256;       // normalised weights staged a pass
+constexpr int kUnroll = 8;        // rows a thread has in flight
 
-__device__ __forceinline__ float decayed(const float* w, const float* s, int n,
-                                         float decay) {
+// One block's work; written by kernels/fused_merge.py::merge_plan (32 bytes).
+struct Tile {
+  long long out0;   // first column of the tile in the flat output
+  long long c0;     // first column of the tile in its leaf
+  int leaf;         // the leaf: row pointers rows[leaf * N + n]
+  int cols;         // columns in the tile, at most 32 * (16 / sizeof(T))
+  int vec;          // 1 if every client's row of the leaf is 16-byte aligned
+  int pad;
+};
+static_assert(sizeof(Tile) == 32, "Tile must match merge_plan's layout");
+
+// The V columns [c, c + m) of one row (zeros past m), as float32.
+template <typename T, int V>
+__device__ __forceinline__ void load_cols(const T* row, long long c, int m,
+                                          bool vec, float* f) {
+  if (vec && m == V) {
+    widen(row + c, f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) f[i] = i < m ? to_f32(row[c + i]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float decayed(const float* w, const float* s,
+                                         int n, float decay) {
   return w[n] * powf(1.0f + s[n], -decay);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_merge_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ s, float* __restrict__ out, int N,
-                   long long D, float decay) {
-  __shared__ float wn[kThreads];
-  __shared__ float warp_sums[kThreads / 32];
-  __shared__ float total_s;
+fused_merge_leaves_kernel(const T* const* __restrict__ rows,
+                          const Tile* __restrict__ tiles,
+                          const float* __restrict__ w,
+                          const float* __restrict__ s,
+                          float* __restrict__ out, int N, float decay) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kCols = 32 * V;
+  __shared__ float wn[kChunk];
+  __shared__ float warp_tot[kWarps];
+  __shared__ float red[kWarps][kCols];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Tile t = tiles[blockIdx.x];
+  const T* const* leaf_rows = rows + static_cast<long long>(t.leaf) * N;
 
-  // 1. the decayed weight total (every block computes it; N is small)
+  // 1. the decayed weight total, summed in a fixed order by every thread
   float part = 0.f;
   for (int n = threadIdx.x; n < N; n += kThreads) part += decayed(w, s, n, decay);
   for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = part;
+  if (lane == 0) warp_tot[warp] = part;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float tot = 0.f;
-    for (int i = 0; i < kThreads / 32; ++i) tot += warp_sums[i];
-    total_s = tot;
-  }
-  __syncthreads();
-  const float total = total_s;
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) total += warp_tot[i];
 
-  // 2. one column per thread, N walked in shared-memory chunks of weights
-  const long long d = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  float acc = 0.f;
-  for (int n0 = 0; n0 < N; n0 += kThreads) {
-    const int n = n0 + threadIdx.x;
-    if (n < N) wn[threadIdx.x] = decayed(w, s, n, decay) / total;
+  // 2. this lane's V columns; warp q takes rows q, q + kWarps, ...
+  const int m = min(V, t.cols - lane * V);
+  const long long c = t.c0 + static_cast<long long>(lane) * V;
+  const bool vec = t.vec != 0;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  for (int n0 = 0; n0 < N; n0 += kChunk) {
+    const int cnt = min(kChunk, N - n0);
+    __syncthreads();                        // the previous chunk is consumed
+    for (int i = threadIdx.x; i < cnt; i += kThreads)
+      wn[i] = decayed(w, s, n0 + i, decay) / total;
     __syncthreads();
-    const int cnt = min(kThreads, N - n0);
-    if (d < D) {
-      const T* col = x + static_cast<long long>(n0) * D + d;
-      for (int k = 0; k < cnt; ++k) acc = fmaf(wn[k], to_f32(col[k * D]), acc);
+    if (m <= 0) continue;
+    for (int r0 = warp; r0 < cnt; r0 += kWarps * kUnroll) {
+      float v[kUnroll][V];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = r0 + u * kWarps;
+        if (r < cnt) {
+          load_cols<T, V>(leaf_rows[n0 + r], c, m, vec, v[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) v[u][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = r0 + u * kWarps;
+        if (r < cnt) {
+          const float wt = wn[r];
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = fmaf(wt, v[u][i], acc[i]);
+        }
+      }
     }
-    __syncthreads();
   }
-  if (d < D) out[d] = acc;
+
+  // 3. the warps' partial sums, added in warp order
+#pragma unroll
+  for (int i = 0; i < V; ++i) red[warp][lane * V + i] = acc[i];
+  __syncthreads();
+  for (int j = threadIdx.x; j < t.cols; j += kThreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) o += red[q][j];
+    out[t.out0 + j] = o;
+  }
 }
 
 template <typename T>
-void launch(const void* x, const float* w, const float* s, float* out, int N,
-            long long D, float decay, cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>((D + kThreads - 1) / kThreads);
-  fused_merge_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, s, out, N, D, decay);
+void launch(const void* rows, const void* tiles, const float* w,
+            const float* s, float* out, int N, int n_tiles, float decay,
+            cudaStream_t stream) {
+  fused_merge_leaves_kernel<T><<<n_tiles, kThreads, 0, stream>>>(
+      static_cast<const T* const*>(rows), static_cast<const Tile*>(tiles), w,
+      s, out, N, decay);
 }
 
 }  // namespace
@@ -88,19 +163,22 @@ void launch(const void* x, const float* w, const float* s, float* out, int N,
 
 using namespace fedsikd;
 
-// x: (N, D) contiguous, dtype code `dtype`; w, s: (N,) f32; out: (D,) f32.
-// Returns cudaGetLastError().
-extern "C" int fedsikd_fused_merge(const void* x, const void* w, const void* s,
-                                   void* out, int N, long long D, int dtype,
-                                   float decay, void* stream) {
+// rows: (L * N) device row pointers, leaf-major; tiles: (n_tiles) Tile;
+// w, s: (N,) f32; out: the flat f32 output the tiles address; every row of
+// dtype code `dtype`.  Returns cudaGetLastError().
+extern "C" int fedsikd_fused_merge(const void* rows, const void* tiles,
+                                   const void* w, const void* s, void* out,
+                                   int N, int n_tiles, int dtype, float decay,
+                                   void* stream) {
+  if (N < 1 || n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* ww = static_cast<const float*>(w);
   const auto* ss = static_cast<const float*>(s);
   auto* o = static_cast<float*>(out);
   switch (dtype) {
-    case kF32: launch<float>(x, ww, ss, o, N, D, decay, st); break;
-    case kBF16: launch<__nv_bfloat16>(x, ww, ss, o, N, D, decay, st); break;
-    case kF16: launch<__half>(x, ww, ss, o, N, D, decay, st); break;
+    case kF32: launch<float>(rows, tiles, ww, ss, o, N, n_tiles, decay, st); break;
+    case kBF16: launch<__nv_bfloat16>(rows, tiles, ww, ss, o, N, n_tiles, decay, st); break;
+    case kF16: launch<__half>(rows, tiles, ww, ss, o, N, n_tiles, decay, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -27,7 +27,10 @@ Dispatch of a CUDA tensor, by dtype and T only (``variant``):
   the CUDA cores.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor goes to its
-kernel, or the wrapper raises (there is no fallback).
+kernel, or the wrapper raises (there is no fallback).  The kernels have no
+backward: a call off the CPU with grad mode on and an input that requires
+grad raises (``refuse_grad``) rather than return an output with no grad
+history; the CPU plain version stays differentiable.
 ``flash_attention.launches`` counts wrapper calls that launched a kernel,
 ``flash_attention.variant_launches`` the same calls by kernel.
 
@@ -186,6 +189,18 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention: tensors on different devices")
 
 
+def refuse_grad(q, k, v) -> None:
+    """Raise when a call off the CPU would need a gradient: the CUDA
+    kernels fill their output through a raw launch, with no backward, so
+    the output would silently carry no grad history."""
+    if (q.device.type != "cpu" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernels have no backward (ROADMAP "
+            "Queue 1 item 10.2); call them under torch.no_grad() or with "
+            "inputs that do not require grad")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Attention of ``q`` (B, T, H, hd) over ``k``, ``v`` (B, S, KVH, hd):
     right-aligned causal mask (optional ``window``), float32 accumulation,
@@ -196,8 +211,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     A CPU tensor takes the plain version.  A CUDA tensor takes one kernel,
     chosen by dtype and T alone (``variant``): T == 1 the decode kernel
     (float32 or bfloat16), T > 1 the tensor-core kernel in bfloat16 and the
-    first (v1) kernel in float32; anything no kernel takes raises."""
+    first (v1) kernel in float32; anything no kernel takes raises, and so
+    does a call off the CPU that would need a gradient (``refuse_grad``)."""
     _check(q, k, v, window)
+    refuse_grad(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -1,30 +1,87 @@
-"""k-means assignment (the Lloyd E-step): the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""k-means assignment (the Lloyd E-step): the CUDA kernel's wrapper, its
+planner and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/kmeans_assign.py::
 _kernel`` (via ``kmeans_assign``); the CUDA source is
 ``csrc/kmeans_assign.cu``.
 
-    d[n, k] = max(||x_n||^2 + ||c_k||^2 - 2 x_n . c_k, 0)
+    d[n, k] = max((||x_n||^2 + ||c_k||^2) - 2 x_n . c_k, 0)
     assign[n] = argmin_k d[n, k]  (ties to the lowest k),  dist[n] = min_k d
 
 Bound on the H100: at the clustering step's (40, 2352) x K <= 5 a call
-moves 0.4 MB and costs its launch; at large N the bytes of ``x`` bound it.
-The first design is one warp per point with the centroids staged in shared
-memory in F-chunks (see the ``.cu`` note).  ``K`` is at most ``MAX_K``; a
-larger K raises.
+moves 0.4 MB and costs its latency; at large N the bytes of ``x`` bound it.
+``plan`` picks one of two shapes of work (one launch a call either way):
+``split`` cuts F across the 8 blocks of a thread-block cluster, 4 points a
+block, and the cluster's rank-0 block adds the slices' partial sums from
+the others' shared memory; ``stream`` stages all centroids in each
+persistent block's shared memory and walks the points, two a warp.  ``K``
+is at most ``MAX_K``; a larger K raises.
 
 Dispatch: a tensor on the CPU goes to the plain version below; a CUDA
 tensor goes to the kernel, or the wrapper raises.  ``kmeans_assign.
-launches`` counts kernel launches (never plain calls).
+launches`` counts kernel launches (never plain calls), ``kmeans_assign.
+variant_launches`` the same launches by regime (``split``, ``stream``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
 MAX_K = 16     # kMaxK of csrc/kmeans_assign.cu
+VARIANTS = ("split", "stream")
+# csrc/kmeans_assign.cu: blocks a cluster (the portable size) and points a
+# block of the split regime; warps a block and points a warp of the stream
+# regime
+CLUSTER = 8
+CLUSTER_POINTS = 4
+STREAM_WARPS = 8
+STREAM_PAIR = 2
+STREAM_BLOCKS_PER_SM = 4
+# H100 shared memory: a block may opt in to 227 KB, an SM holds 228 KB, and
+# the runtime reserves 1 KB a block
+SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+H100_SMS = 132
+
+
+def plan(N: int, F: int, K: int, sms: int = H100_SMS) -> dict:
+    """The kernel's shape of work for (N, F) points and K centroids on a
+    card of ``sms`` SMs.  ``stream`` when every SM gets a block of
+    STREAM_WARPS x STREAM_PAIR points and the K x F centroids fit in a
+    block's shared memory: ``blocks`` persistent blocks, ``per_sm`` an SM by
+    shared memory, ``smem`` bytes each.  Otherwise ``split``: ``groups``
+    clusters of CLUSTER blocks (``blocks`` in all), CLUSTER_POINTS points a
+    cluster, F cut into CLUSTER ``slices`` (start, length) of ``slice_len``
+    columns, a multiple of 4 (the last ones shorter or empty)."""
+    smem = 4 * K * (F + 1)
+    need = -(-N // (STREAM_WARPS * STREAM_PAIR))
+    if need >= sms and smem <= SMEM_BLOCK_MAX:
+        per_sm = max(1, min(STREAM_BLOCKS_PER_SM,
+                            SMEM_SM // (smem + SMEM_RESERVED)))
+        return {"regime": "stream", "blocks": min(need, sms * per_sm),
+                "per_sm": per_sm, "threads": 32 * STREAM_WARPS,
+                "smem": smem}
+    slice_len = 4 * -(-F // (4 * CLUSTER))
+    slices = [(min(F, r * slice_len),
+               max(0, min(slice_len, F - r * slice_len)))
+              for r in range(CLUSTER)]
+    groups = -(-N // CLUSTER_POINTS)
+    return {"regime": "split", "cluster": CLUSTER, "groups": groups,
+            "blocks": groups * CLUSTER, "threads": 32 * CLUSTER_POINTS,
+            "slice_len": slice_len, "slices": slices, "smem": 0}
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(N: int, F: int, K: int, device_index: int):
+    """``plan`` on this card, kept per shape: (regime, blocks, slice_len)
+    (the clustering step makes 255 calls at a handful of shapes)."""
+    p = plan(N, F, K, torch.cuda.get_device_properties(device_index)
+             .multi_processor_count)
+    return p["regime"], p["blocks"], p.get("slice_len", 0)
 
 
 def kmeans_assign_plain(x, cents):
@@ -65,16 +122,22 @@ def kmeans_assign(x, cents):
                          f"centroids, got K={K}")
     if N == 0 or F == 0:
         raise ValueError(f"kmeans_assign: empty points {tuple(x.shape)}")
+    regime, blocks, slice_len = _launch_plan(N, F, K, x.device.index)
+    vec = int(F % 4 == 0 and x.data_ptr() % 16 == 0
+              and cents.data_ptr() % 16 == 0)
     assign = torch.empty(N, dtype=torch.int32, device=x.device)
     dist = torch.empty(N, dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.fedsikd_kmeans_assign(
             x.data_ptr(), cents.data_ptr(), assign.data_ptr(),
-            dist.data_ptr(), N, F, K, _build.stream_handle(x))
-    _build.check(err, "kmeans_assign")
+            dist.data_ptr(), N, F, K, VARIANTS.index(regime), blocks,
+            slice_len, vec, _build.stream_handle(x))
+    _build.check(err, f"kmeans_assign ({regime})")
     kmeans_assign.launches += 1
+    kmeans_assign.variant_launches[regime] += 1
     return assign, dist
 
 
 kmeans_assign.launches = 0
+kmeans_assign.variant_launches = dict.fromkeys(VARIANTS, 0)

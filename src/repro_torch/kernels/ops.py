@@ -12,7 +12,8 @@ assignment and flash attention.
   one forward and one backward launch for all lanes (the JAX engine calls
   the fused loss per lane inside ``vmap``).
 - ``fused_merge`` takes an ``(N, ...)`` stack of one model leaf and returns
-  the ``(...)`` float32 decayed weighted mean.
+  the ``(...)`` float32 decayed weighted mean; ``fused_merge_leaves`` merges
+  every leaf of N clients' parameter lists in one launch, unstacked.
 - ``kmeans_assign`` is the nearest-centroid step of k-means.
 - ``flash_attention`` is grouped-query attention with the right-aligned
   causal mask, in the layer layout.
@@ -146,6 +147,17 @@ def fused_merge(stacked, weights, staleness=None, *, decay: float = 0.0):
     out = _fm.fused_merge(xf, w.contiguous(), s.contiguous(),
                           decay=float(decay))
     return out.reshape(stacked.shape[1:])
+
+
+def fused_merge_leaves(rows, weights, staleness=None, *, decay: float = 0.0):
+    """``fused_merge`` of every leaf of N clients at once.
+
+    rows: N sequences of L tensors (client n's leaves in one order; leaf l
+    has one shape and dtype across clients); weights, staleness: (N,) host
+    values (staleness None = all zeros).  Returns L float32 tensors in the
+    leaves' shapes.  On the card, one kernel launch for each dtype among
+    the leaves, reading every client's leaf in place."""
+    return _fm.fused_merge_leaves(rows, weights, staleness, decay=float(decay))
 
 
 def kmeans_assign(x, cents):

@@ -292,3 +292,44 @@ def test_rounding_p_once_to_bf16_breaks_the_tolerance():
     want = fa.flash_attention_plain(q, k, v, causal=True)
     assert _outside_fa_tol(_tensor_core_arithmetic(q, k, v, split=False),
                            want) > 1000
+
+
+def test_a_call_off_the_cpu_that_needs_a_gradient_raises():
+    """The CUDA kernels have no backward, so a call that would need one
+    raises before the device dispatch (``meta`` tensors reach the same
+    branch a CUDA tensor does); without grad mode or grad inputs the call
+    goes on to the dispatch, which has no path for ``meta``."""
+    shape = (1, 4, 2, 32)
+    grad = torch.empty(shape, device="meta", requires_grad=True)
+    plain = torch.empty(shape, device="meta")
+    for q, k in ((grad, plain), (plain, grad)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10.2"):
+            ops.flash_attention(q, k, plain)
+    with torch.no_grad(), pytest.raises(ValueError,
+                                        match="no kernel or plain path"):
+        ops.flash_attention(grad, grad, grad)
+    with pytest.raises(ValueError, match="no kernel or plain path"):
+        ops.flash_attention(plain, plain, plain)
+    fa.refuse_grad(*(torch.ones(shape, requires_grad=True),) * 3)   # CPU
+
+
+@pytest.mark.parametrize("T,S,window", [(24, 24, 0), (16, 40, 8)])
+def test_the_cpu_path_stays_differentiable(T, S, window):
+    """On the CPU the plain version carries the gradient: q, k and v's
+    gradients of a weighted sum of the output against ``jax.grad`` of the
+    JAX oracle, whose attention is what the reference trains through.
+    Float32 on both sides, summed in other orders: 1e-5."""
+    import jax
+    arrays = _inputs(T + S, 2, 4, 2, T, S, 32)
+    g = np.random.default_rng(1).standard_normal((2, T, 4, 32), np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(_ref(q, k, v, causal=True, window=window) * g)
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrays))
+    tx = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    out = ops.flash_attention(*tx, causal=True, window=window)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(g)).sum().backward()
+    for t, w in zip(tx, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)

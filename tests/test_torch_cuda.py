@@ -7,8 +7,8 @@ one, run them with
 
 Tolerances are those of ``chip_smoke.py``: 2e-5 on the f32 KD loss and
 stats, 1e-5 on its gradient, 5e-2 in bf16, 1e-5 on the f32 merge and 2e-2
-on a bf16 leaf, 1e-4 relative on k-means distances with no assignment
-differing, and ``chip_smoke.FA_TOL`` on flash attention (2e-5 in f32; in
+on a bf16 leaf (single- and multi-leaf entries), 1e-4 relative on k-means
+distances with no assignment differing (both regimes), and ``chip_smoke.FA_TOL`` on flash attention (2e-5 in f32; in
 bf16 one rounding of the output, rtol 8e-3 over an atol of 1e-4), whose
 shapes and inputs also come from ``chip_smoke.py``.  This file imports no
 JAX, so it runs where JAX is absent.
@@ -101,6 +101,55 @@ def test_fused_merge_matches_plain(dev, N, D, dtype, decay):
                                rtol=tol, atol=tol)
     assert out.dtype == torch.float32
     assert launch_counts()["fused_merge"] == 1
+    assert fm.fused_merge.variant_launches == {"leaf": 1, "leaves": 0}
+
+
+@pytest.mark.parametrize("N,dtypes,decay,offset", [
+    (40, (torch.float32,), 0.5, 0),          # the loop engine's round
+    (300, (torch.float32,), 1.5, 0),         # N past one chunk of weights
+    (40, (torch.bfloat16,), 0.0, 0),
+    (40, (torch.float32,), 0.5, 1),          # misaligned rows: scalar loads
+    (40, (torch.bfloat16,), 0.5, 3),
+    (7, (torch.float32, torch.bfloat16), 0.5, 0),   # two dtypes: 2 launches
+], ids=str)
+def test_fused_merge_leaves_matches_plain(dev, N, dtypes, decay, offset):
+    """The ten student leaves from ``chip_smoke._student_rows``; with
+    ``offset`` the odd clients' rows are not 16-byte aligned."""
+    rows, w, s = chip_smoke._student_rows(N, dtypes, N + offset,
+                                          offset=offset, device=dev)
+    if offset:
+        assert any(t.data_ptr() % 16 for t in rows[1])
+    reset_launches()
+    got = fm.fused_merge_leaves(rows, w, s, decay=decay)
+    assert launch_counts()["fused_merge"] == len(dtypes)
+    assert fm.fused_merge.variant_launches == {"leaf": 0,
+                                               "leaves": len(dtypes)}
+    want = fm.fused_merge_leaves_plain(rows, w, s, decay=decay)
+    for l, (g, ref) in enumerate(zip(got, want)):
+        tol = 1e-5 if rows[0][l].dtype == torch.float32 else 2e-2
+        assert g.dtype == torch.float32 and g.shape == rows[0][l].shape
+        assert g.data_ptr() % 16 == 0
+        torch.testing.assert_close(g, ref, rtol=tol, atol=tol)
+
+
+def test_weighted_average_is_one_launch_on_the_card(dev):
+    """The loop engine's merge (``core.aggregation``) of 40 client dicts of
+    the student: one kernel launch, each leaf's dtype kept, equal to the
+    same merge on the CPU."""
+    from repro_torch.core import aggregation as agg
+    rows, w, _ = chip_smoke._student_rows(40, (torch.float32,), 1,
+                                          device=dev)
+    keys = [f"leaf{l}" for l in range(len(rows[0]))]
+    params = [dict(zip(keys, r)) for r in rows]
+    reset_launches()
+    got = agg.weighted_average(params, w.tolist())
+    assert fm.fused_merge.variant_launches == {"leaf": 0, "leaves": 1}
+    want = agg.weighted_average([{k: v.cpu() for k, v in p.items()}
+                                 for p in params], w.tolist())
+    for k in keys:
+        assert got[k].dtype == params[0][k].dtype
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -128,6 +177,42 @@ def test_kmeans_assign_matches_plain(dev, N, F, K):
     assert int((a != a_p).sum()) == 0
     torch.testing.assert_close(d, d_p, rtol=1e-4, atol=1e-4)
     assert launch_counts()["kmeans_assign"] == 1
+
+
+@pytest.mark.parametrize("N,F,K", [
+    (40, 2352, 3), (40, 2352, 4),            # split: the clustering step
+    (16384, 2352, 16),                       # stream, K = MAX_K (150 KB)
+    (40, 2350, 5), (16384, 2350, 8),         # F not a multiple of 4
+    (3000, 2352, 5), (5, 7, 16)])
+def test_kmeans_assign_regimes_match_plain(dev, N, F, K):
+    r = np.random.default_rng(N + F + K)
+    x = torch.from_numpy(r.standard_normal((N, F)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(r.standard_normal((K, F)).astype(np.float32)).to(dev)
+    regime = km.plan(N, F, K, torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)["regime"]
+    reset_launches()
+    a, d = km.kmeans_assign(x, c)
+    assert km.kmeans_assign.variant_launches == {
+        name: int(name == regime) for name in km.VARIANTS}
+    a_p, d_p = km.kmeans_assign_plain(x, c)
+    assert int((a != a_p).sum()) == 0
+    torch.testing.assert_close(d, d_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("F", [6, 8])
+def test_kmeans_assign_ties_in_the_stream_regime(dev, F):
+    """The tie points repeated past the stream regime's threshold, with
+    scalar (F = 6) and 16-byte (F = 8) loads: ties go to the lowest k."""
+    c = torch.zeros((4, F), device=dev)
+    c[0, 0], c[1, 1], c[2, 0], c[3, 1] = 1.0, 2.0, -1.0, 2.0
+    pts = torch.zeros((3, F), device=dev)
+    pts[1, 1], pts[2, 1] = 2.0, 2.5
+    x = pts.repeat(1000, 1).contiguous()
+    reset_launches()
+    a, d = km.kmeans_assign(x, c)
+    assert km.kmeans_assign.variant_launches["stream"] == 1
+    assert a.tolist() == [0, 1, 1] * 1000
+    torch.testing.assert_close(d, km.kmeans_assign_plain(x, c)[1])
 
 
 def test_kmeans_assign_ties_and_refusals(dev):
@@ -277,6 +362,26 @@ def test_flash_attention_fully_masked_rows_average_v_bf16(dev):
     torch.testing.assert_close(out[:, :56].float(),
                                mean_v[:, None].expand(-1, 56, -1, -1)
                                .bfloat16().float(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_refuses_a_gradient_on_the_card(dev):
+    """The CUDA kernels have no backward: with grad mode on and an input
+    that requires grad the call raises and launches nothing; under
+    ``torch.no_grad()`` it runs and gives the same output."""
+    q, k, v = chip_smoke._fa_inputs((1, 4, 2, 8, 8, 64, 0), torch.float32, 5,
+                                    dev)
+    reset_launches()
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10.2"):
+            ops.flash_attention(*args)
+    assert launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        out = ops.flash_attention(q.clone().requires_grad_(True), k, v)
+    assert not out.requires_grad
+    torch.testing.assert_close(out, ops.flash_attention(q, k, v), rtol=0,
+                               atol=0)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):

@@ -3,7 +3,7 @@ path) against the JAX package's Pallas kernels run in interpret mode, on the
 same numpy inputs.  Tolerances are those of tests/test_kernels.py: 2e-5 for
 the f32 KD loss and 5e-2 for bf16 (bf16 inputs hold ~3 significant digits),
 1e-4 for the tau/alpha sweep, rtol 1e-5 / atol 1e-6 for the gradient, 1e-5
-for the f32 merge and 2e-2 for a bf16 leaf."""
+for the f32 merge and 2e-2 for a bf16 leaf (the multi-leaf merge too)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,6 +153,95 @@ def test_fused_merge_monotone_in_decay():
         assert got <= prev + 1e-7
         prev = got
     assert prev < 0.1
+
+
+# the MNIST student's ten leaves (repro_torch.models.cnn.MnistCNN(student=True))
+MNIST_STUDENT_SHAPES = [(32, 1, 3, 3), (32,), (16, 32, 3, 3), (16,),
+                        (16, 16, 3, 3), (16,), (64, 16, 3, 3), (64,),
+                        (256, 10), (10,)]
+
+
+@pytest.mark.parametrize("N", [3, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", [0.0, 0.5])
+def test_fused_merge_leaves_matches_pallas(N, dtype, decay):
+    """The multi-leaf entry (its plain version on the CPU) against the
+    Pallas kernel in interpret mode, leaf by leaf, over the MNIST student's
+    ten leaves: 1e-5 in f32, 2e-2 in bf16 (the single-leaf bounds)."""
+    r = np.random.default_rng(N * 10 + int(decay * 2) + (dtype == "bfloat16"))
+    leaves = [(r.standard_normal((N, *shape)) * 2).astype(np.float32)
+              for shape in MNIST_STUDENT_SHAPES]
+    w = (np.abs(r.standard_normal(N)) + 0.1).astype(np.float32)
+    s = r.integers(0, 4, N).astype(np.float32)
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (
+        jnp.float32, torch.float32)
+    rows = [[torch.from_numpy(x[n]).to(td) for x in leaves] for n in range(N)]
+    reset_launches()
+    got = ops.fused_merge_leaves(rows, w, s, decay=decay)
+    assert launch_counts()["fused_merge"] == 0          # CPU: plain
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for x, g in zip(leaves, got):
+        assert g.shape == x.shape[1:] and g.dtype == torch.float32
+        want = jops.fused_merge(jnp.asarray(x).astype(jd), jnp.asarray(w),
+                                jnp.asarray(s), decay=decay, interpret=True)
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("elt,n_tiles", [(4, 154), (2, 80)])
+def test_merge_plan_tiles_cover_every_leaf_once(elt, n_tiles):
+    """The kernel's tile table over the MNIST student: every column of every
+    leaf in exactly one tile, no tile across a leaf boundary, each leaf's
+    output on a 16-byte boundary, the layout of ``csrc/fused_merge.cu``'s
+    Tile (leaf in the low and width in the high half of the third word)."""
+    from repro_torch.kernels.fused_merge import TILE_BYTES, merge_plan
+    sizes = [int(np.prod(shape)) for shape in MNIST_STUDENT_SHAPES]
+    aligned = [i % 3 != 1 for i in range(len(sizes))]
+    tiles, offsets, total = merge_plan(sizes, elt, aligned)
+    assert tiles.shape == (n_tiles, 4) and tiles.dtype == np.int64
+    leaf, width = tiles[:, 2] & 0xffffffff, tiles[:, 2] >> 32
+    assert np.all((width >= 1) & (width <= TILE_BYTES // elt))
+    for l, D in enumerate(sizes):
+        mine = tiles[leaf == l]
+        covered = np.concatenate([np.arange(c0, c0 + n) for c0, n in
+                                  zip(mine[:, 1], width[leaf == l])])
+        np.testing.assert_array_equal(np.sort(covered), np.arange(D))
+        np.testing.assert_array_equal(mine[:, 0], offsets[l] + mine[:, 1])
+        assert set(mine[:, 3].tolist()) == {int(aligned[l])}
+        assert offsets[l] % 4 == 0
+        end = offsets[l + 1] if l + 1 < len(sizes) else total
+        assert end - offsets[l] in (D, D + (-D) % 4)
+    assert total == sum(D + (-D) % 4 for D in sizes)
+
+
+def test_fused_merge_leaves_checks_its_inputs(monkeypatch):
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail(
+        "a CPU tensor reached the CUDA library"))
+    a = [torch.ones(2, 3), torch.ones(4)]
+    with pytest.raises(ValueError, match="client 1 leaf 0"):
+        ops.fused_merge_leaves([a, [torch.ones(3, 2), torch.ones(4)]], [1, 1])
+    with pytest.raises(ValueError, match="client 1 has 1 leaves"):
+        ops.fused_merge_leaves([a, a[:1]], [1, 1])
+    with pytest.raises(ValueError, match="must be"):
+        ops.fused_merge_leaves([a, a], [1, 1, 1])
+    meta = [torch.empty(4, device="meta")]
+    with pytest.raises(ValueError, match="no kernel or plain path"):
+        ops.fused_merge_leaves([meta, meta], [1, 1])
+    reset_launches()
+    got = ops.fused_merge_leaves([a, [2 * t for t in a]], [1, 3],
+                                 [0, 0])
+    np.testing.assert_allclose(got[0].numpy(), np.full((2, 3), 1.75))
+    assert launch_counts()["fused_merge"] == 0
+
+
+def test_reset_launches_zeroes_the_merge_and_kmeans_variants():
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import kmeans_assign as km
+    fm.fused_merge.variant_launches.update(leaf=2, leaves=3)
+    km.kmeans_assign.variant_launches.update(split=4, stream=5)
+    reset_launches()
+    assert fm.fused_merge.variant_launches == {"leaf": 0, "leaves": 0}
+    assert km.kmeans_assign.variant_launches == {"split": 0, "stream": 0}
 
 
 @pytest.mark.parametrize("tau,alpha", [(1.0, 0.0), (2.0, 0.5), (4.0, 1.0)])
