@@ -4,22 +4,26 @@ GPU.  Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each kernel against its plain PyTorch version on the card, drives the
-fused distill step and the FedSiKD main path (``run_federated`` on the full
-MNIST twin, 40 clients, 3 rounds) on the card on both engines (the loop
-engine, then the packed engine with all 40 clients as lanes of one stacked
-program), then serves the full-width, full-depth qwen2.5-3b in bf16 (random
-weights from a seed): a prefill of 2 x 4096 tokens and 32 greedy decode
-steps through ``make_prefill_step`` / ``make_decode_step``, with every
-attention in a flash-attention kernel (the bf16 prefill on the tensor-core
-kernel, every decode step on the decode kernel).  It checks that each path
-went through its kernels (the loop engine's merge one multi-leaf launch a
-round, the clustering step's 255 k-means calls on the split kernel),
-holds the packed engine's per-round accuracy and losses to the loop
-engine's and a float32 2-layer serve's decode logits to a full forward of
-the same tokens, times every kernel beside its bound, and prints one JSON
-object per line.  The last line is
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(and, beside them, the KD kernels' first design from ``tools/`` that phase
+5 times against the port's), holds each kernel against its plain PyTorch
+version on the card (the KD kernels in each of their two regimes, rows
+and stream, at ``KD_CASES``), drives the fused distill step and the
+FedSiKD main path (``run_federated`` on the full MNIST twin, 40 clients, 3
+rounds) on the card on both engines (the loop engine, then the packed
+engine with all 40 clients as lanes of one stacked program), then serves
+the full-width, full-depth qwen2.5-3b in bf16 (random weights from a seed):
+a prefill of 2 x 4096 tokens and 32 greedy decode steps through
+``make_prefill_step`` / ``make_decode_step``, with every attention in a
+flash-attention kernel (the bf16 prefill on the tensor-core kernel, every
+decode step on the decode kernel). It checks that each path went through
+its kernels (the loop engine's merge one multi-leaf launch a round, the
+clustering step's 255 k-means calls on the split kernel, every KD launch of
+the fused distill step and the packed engine on the rows kernels), holds
+the packed engine's per-round accuracy and losses to the loop engine's and
+a float32 2-layer serve's decode logits to a full forward of the same
+tokens, times every kernel beside its bound, and prints one JSON object per
+line. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 any failed phase raises, so the script exits non-zero and never prints it.
 It imports nothing of JAX and nothing of the JAX package.
@@ -63,6 +67,22 @@ PATH_ROWS = PACKED_LANES * BATCH       # the KD kernels' rows on the packed path
 # engines run the same clusters, init and batches, so only rounding differs
 # (measured gaps up to 1.7e-3 relative on the CPU, tests/test_torch_sharded.py)
 LOSS_RTOL_TO_LOOP = 1e-2
+# (T, V) of the KD checks, every regime of kernels/kd_softmax_kl.py::plan:
+# rows at the loop engine's and the packed path's shapes, stream at an LLM
+# vocabulary, at an odd V (rows not 16-byte aligned, a scalar tail), and
+# for fewer rows than SMs at the served model's vocabulary and GPT-2's;
+# each in float32 and bf16
+KD_CASES = [(64, 10), (PATH_ROWS, 10), (2048, 32000), (300, 32003),
+            (16, 151936), (5, 50257)]
+# (loss and stats rtol, ds rtol and atol) of the KD kernels against their
+# plain versions; the loss and stats take an atol of 10 x their rtol
+KD_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}
+# bf16 ds also against the plain ds in float32 on the same (exactly
+# widened) inputs: one rounding to bf16, at most 2**-7 of a value, over a
+# floor of 1e-5 of the largest |ds| for the float32 arithmetic before it.
+# Most |ds| lie far below KD_TOL's 5e-2 (g is 0.01-0.03 a row), where
+# that bound alone would pass a kernel that wrote zeros.
+KD_BF16_DS = (2 ** -7, 1e-5)
 # the clustering step's statistics matrix: 40 clients x 3 * 784 features
 KM_N, KM_F = 40, 3 * 784
 # the served model and its traffic: B sequences, a prompt of LM_PROMPT
@@ -131,6 +151,13 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def check_bf16_ds(name, ds, want) -> float:
+    """A bf16 KD gradient against the plain one in float32, at KD_BF16_DS."""
+    rtol, floor = KD_BF16_DS
+    return check_close(name, ds, want, rtol,
+                       floor * float(want.abs().max()))
+
+
 def check_close(name, got, want, rtol, atol) -> float:
     """Raise unless |got - want| <= atol + rtol |want| everywhere."""
     import torch
@@ -165,14 +192,24 @@ def phase_setup():
 
 # ------------------------------------------------------------------ phase 1
 def phase_build():
+    """The port's library, and beside it (one more nvcc, started first) the
+    KD kernels' first design that phase 5 times against the port's."""
     from repro_torch.kernels import _build
+    from tools import kd_first
+    t0 = time.perf_counter()
+    proc, first_path = kd_first.start_build(_build._nvcc())
     info = _build.build()
     _build.library()
+    if proc.wait() != 0:
+        raise RuntimeError("the KD kernels' first design did not build: "
+                           + (first_path.parent / "kd_first.log").read_text())
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "built": info["built"],
           "seconds": info["seconds"], "library": info["path"],
+          "with_first_design_seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+    return kd_first.load(first_path)
 
 
 # ------------------------------------------------------------------ phase 2
@@ -273,10 +310,50 @@ def _fa_inputs(shape, dtype, seed, device=None):
     return q, normal(B, S_buf, KVH, hd)[:, :S], normal(B, S_buf, KVH, hd)[:, :S]
 
 
+def _kd_check(T, V, dtype, seed, sms):
+    """One KD forward and backward call against the plain versions at the
+    KD_TOL of ``dtype``, per-lane g; raises unless each call was one launch
+    of the regime ``plan`` gives.  Returns the forward's and backward's
+    largest errors."""
+    import torch
+    from repro_torch.kernels import kd_softmax_kl as kd
+    name = str(dtype)[6:]
+    tol, btol = KD_TOL[name]
+    s, t, y = _kd_inputs(T, V, dtype, seed)
+    regime = kd.plan(T, V, sms)["regime"]
+    tag = f"T={T} V={V} {name} [{regime}]"
+    before = (dict(kd.kd_loss_fwd.variant_launches),
+              dict(kd.kd_loss_bwd.variant_launches))
+    loss, stats = kd.kd_loss_fwd(s, t, y, tau=2.0, alpha=0.5)
+    loss_p, stats_p = kd.kd_loss_fwd_plain(s, t, y, tau=2.0, alpha=0.5)
+    g = _lane_grads(y, seed)
+    ds = kd.kd_loss_bwd(s, t, y, stats, g, tau=2.0, alpha=0.5)
+    ds_p = kd.kd_loss_bwd_plain(s, t, y, stats_p, g, tau=2.0, alpha=0.5)
+    torch.cuda.synchronize()
+    for fn, was in zip((kd.kd_loss_fwd, kd.kd_loss_bwd), before):
+        took = {k: v - was[k] for k, v in fn.variant_launches.items()}
+        if took != {k: int(k == regime) for k in kd.VARIANTS}:
+            raise RuntimeError(f"{fn.__name__} {tag}: expected one "
+                               f"'{regime}' launch, counted {took}")
+    e_fwd = max(check_close(f"kd_fwd {tag} loss", loss, loss_p, tol,
+                            tol * 10),
+                check_close(f"kd_fwd {tag} stats", stats, stats_p, tol,
+                            tol * 10))
+    e_bwd = check_close(f"kd_bwd {tag} ds, per-lane g", ds, ds_p, btol,
+                        btol)
+    if dtype == torch.bfloat16:
+        check_bf16_ds(f"kd_bwd {tag} ds, one rounding of the float32 ds",
+                      ds, kd.kd_loss_bwd_plain(s.float(), t.float(), y,
+                                               stats_p, g, tau=2.0,
+                                               alpha=0.5))
+    return e_fwd, e_bwd
+
+
 def phase_kernel_checks():
-    """Every kernel against its plain version on the card.  The KD rows of
-    the kernels line carry the error at the packed path's shape: (2560, 10)
-    rows and the per-lane wrapper ``ops.kd_distillation_loss_lanes`` on
+    """Every kernel against its plain version on the card, the KD kernels
+    at KD_CASES in every regime.  The KD rows of the kernels line carry the
+    error at the packed path's shape: (2560, 10) rows and the per-lane
+    wrapper ``ops.kd_distillation_loss_lanes`` on
     (40, 64, 10), held against the plain per-lane loss and its gradient;
     the flash-attention row the largest error at the served model's prefill
     and decode shapes, in float32 and bf16."""
@@ -290,27 +367,14 @@ def phase_kernel_checks():
     from repro_torch.kernels import ops
     errs = {"kd_softmax_kl_fwd": 0.0, "kd_softmax_kl_bwd": 0.0,
             "fused_merge": 0.0}
-    for T, V, dtype, tol, seed in ((64, 10, torch.float32, 2e-5, 0),
-                                   (PATH_ROWS, 10, torch.float32, 2e-5, 25),
-                                   (2048, 32000, torch.float32, 2e-5, 1),
-                                   (2048, 32000, torch.bfloat16, 5e-2, 2)):
-        s, t, y = _kd_inputs(T, V, dtype, seed)
-        loss, stats = kd.kd_loss_fwd(s, t, y, tau=2.0, alpha=0.5)
-        loss_p, stats_p = kd.kd_loss_fwd_plain(s, t, y, tau=2.0, alpha=0.5)
-        torch.cuda.synchronize()
-        tag = f"kd_fwd T={T} V={V} {str(dtype)[6:]}"
-        e_fwd = max(check_close(tag + " loss", loss, loss_p, tol, tol * 10),
-                    check_close(tag + " stats", stats, stats_p, tol, tol * 10))
-        g = _lane_grads(y, seed)
-        ds = kd.kd_loss_bwd(s, t, y, stats, g, tau=2.0, alpha=0.5)
-        ds_p = kd.kd_loss_bwd_plain(s, t, y, stats_p, g, tau=2.0, alpha=0.5)
-        torch.cuda.synchronize()
-        btol = 1e-5 if dtype == torch.float32 else 5e-2
-        e_bwd = check_close(f"kd_bwd T={T} V={V} {str(dtype)[6:]} ds, "
-                            "per-lane g", ds, ds_p, btol, btol)
-        if T == PATH_ROWS:
-            errs["kd_softmax_kl_fwd"] = max(errs["kd_softmax_kl_fwd"], e_fwd)
-            errs["kd_softmax_kl_bwd"] = max(errs["kd_softmax_kl_bwd"], e_bwd)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (T, V) in enumerate(KD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            e_fwd, e_bwd = _kd_check(T, V, dtype, 2 * i + (dtype != torch
+                                                           .float32), sms)
+            if (T, V, dtype) == (PATH_ROWS, 10, torch.float32):
+                errs["kd_softmax_kl_fwd"] = e_fwd
+                errs["kd_softmax_kl_bwd"] = e_bwd
     s, t, y = _kd_inputs(PATH_ROWS, 10, torch.float32, 26)
     shape = (PACKED_LANES, BATCH, 10)
     s, t, y = s.reshape(shape), t.reshape(shape), y.reshape(shape[:2])
@@ -368,7 +432,6 @@ def phase_kernel_checks():
                 for l, (o, ref) in enumerate(zip(out, want)))
         errs["fused_merge"] = max(errs["fused_merge"], e)
     errs["kmeans_assign"] = 0.0
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for N, K, F, seed in [(KM_N, k, KM_F, 7 + k) for k in (2, 3, 4, 5)] + [
             (16384, 8, KM_F, 12), (16384, 16, KM_F, 17),
             (KM_N, 5, KM_F - 2, 18), (16384, 8, KM_F - 2, 19)]:
@@ -434,6 +497,7 @@ def phase_fused_distill(ds):
     from repro_torch import rng
     from repro_torch.data.pipeline import make_client_shards
     from repro_torch.fed.client import make_steps
+    from repro_torch.kernels import kd_softmax_kl as kd
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models.cnn import make_model
     from repro_torch.optim import adamw
@@ -458,6 +522,8 @@ def phase_fused_distill(ds):
     reset_launches()
     p_fused, l_fused = epoch(steps["make_distill"](t_fwd, fused=True))
     counts = launch_counts()
+    variants = {"fwd": dict(kd.kd_loss_fwd.variant_launches),
+                "bwd": dict(kd.kd_loss_bwd.variant_launches)}
     p_ref, l_ref = epoch(steps["make_distill"](t_fwd, fused=False))
     n = len(l_fused)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_fused, l_ref))
@@ -465,7 +531,7 @@ def phase_fused_distill(ds):
     emit({"phase": "fused_distill_step", "steps": n, "examples":
           shard.num_examples, "losses_fused": l_fused, "losses_ref": l_ref,
           "max_loss_rel_err": loss_rel, "max_param_abs_err": param_abs,
-          "launches": counts})
+          "launches": counts, "kd_variants": variants})
     if loss_rel > 1e-5:
         raise RuntimeError(f"fused and reference distill losses differ by "
                            f"{loss_rel} relative (limit 1e-5)")
@@ -475,6 +541,10 @@ def phase_fused_distill(ds):
     if counts["kd_softmax_kl_fwd"] != n or counts["kd_softmax_kl_bwd"] != n:
         raise RuntimeError(f"expected {n} KD forward and backward launches "
                            f"in {n} steps, counted {counts}")
+    all_rows = {"rows": n, "stream": 0}
+    if variants != {"fwd": all_rows, "bwd": all_rows}:
+        raise RuntimeError(f"expected every KD launch of the {n} steps on "
+                           f"the rows kernels, counted {variants}")
     return counts
 
 
@@ -544,6 +614,7 @@ def phase_packed_path(ds, loop_h):
     from repro_torch.data.pipeline import make_client_shards
     from repro_torch.fed.rounds import FedConfig, run_federated
     from repro_torch.fed.sharded import client_step_counts
+    from repro_torch.kernels import kd_softmax_kl as kd
     from repro_torch.kernels import launch_counts, reset_launches
 
     cfg = FedConfig(algorithm="fedsikd", engine="sharded", pack=PACKED_LANES,
@@ -555,6 +626,8 @@ def phase_packed_path(ds, loop_h):
     h = run_federated(ds, cfg, device=DEV)
     total = time.perf_counter() - t0
     counts = launch_counts()
+    kd_variants = {"fwd": dict(kd.kd_loss_fwd.variant_launches),
+                   "bwd": dict(kd.kd_loss_bwd.variant_launches)}
     want_kd = ROUNDS * int(budgets.max())      # full participation
     want_km = expected_kmeans_launches(cfg, cfg.num_clients)
     gaps = [abs(a - b) for a, b in zip(h["acc"], loop_h["acc"])]
@@ -571,6 +644,7 @@ def phase_packed_path(ds, loop_h):
           h["participants"], "seconds_total": total,
           "student_steps_per_round": int(budgets.max()),
           "launches": counts, "expected_kd_launches": want_kd,
+          "kd_variants": kd_variants,
           "expected_kmeans_launches": want_km,
           "acc_gap_to_loop": gaps, "loss_rel_gap_to_loop": loss_gaps})
     for name in ("kd_softmax_kl_fwd", "kd_softmax_kl_bwd"):
@@ -578,6 +652,11 @@ def phase_packed_path(ds, loop_h):
             raise RuntimeError(f"expected {want_kd} {name} launches (the "
                                f"longest student budget x {ROUNDS} rounds), "
                                f"counted {counts[name]}")
+    all_rows = {"rows": want_kd, "stream": 0}
+    if kd_variants != {"fwd": all_rows, "bwd": all_rows}:
+        raise RuntimeError(f"expected all {want_kd} KD forward and backward "
+                           f"launches on the rows kernels, counted "
+                           f"{kd_variants}")
     if counts["kmeans_assign"] != want_km:
         raise RuntimeError(f"expected {want_km} kmeans_assign launches in "
                            f"the clustering step, counted "
@@ -741,27 +820,66 @@ def phase_lm_serve(smi):
 
 
 # ------------------------------------------------------------------ phase 5
-def _kd_timing(T, V, dtype, seed):
+def _kd_sets(T, V, dtype, seed):
+    """Copies of one KD input set at (T, V), enough that one pass over
+    them reads twice the card's L2, and a function that returns the next
+    copy each call: every timed call then reads its logits from HBM, not
+    from L2 where an earlier call left them."""
+    import itertools
+    import torch
+    s, t, y = _kd_inputs(T, V, dtype, seed)
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    n = max(1, -(-2 * l2 // (2 * s.numel() * s.element_size())))
+    S, Tt = s.repeat(n, 1).view(n, T, V), t.repeat(n, 1).view(n, T, V)
+    Y = y.repeat(n).view(n, T)
+    sets = [(S[i], Tt[i], Y[i]) for i in range(n)]
+    turn = itertools.count()
+    return sets, lambda: sets[next(turn) % n]
+
+
+def _kd_timing(T, V, dtype, seed, first):
+    """One KD forward and one backward call at (T, V) beside their bounds:
+    the port's kernels (``ms`` by CUDA events, ``device_us`` by the
+    profiler, the ``regime`` of ``plan``), the first design built from
+    ``tools/kd_softmax_kl_first.cu`` (``first_ms``, ``first_device_us``)
+    on the same inputs, timed in turns (port, first, first, port: the
+    second pair as ``*_again``), and the plain versions.  Each call takes
+    the next of ``input_sets`` copies of the inputs (``_kd_sets``)."""
     import torch
     from repro_torch.kernels import kd_softmax_kl as kd
-    s, t, y = _kd_inputs(T, V, dtype, seed)
-    T, V = s.shape
+    from tools import kd_first
+    sets, nxt = _kd_sets(T, V, dtype, seed)
     g = torch.ones(T, dtype=torch.float32, device=DEV)
-    _, stats = kd.kd_loss_fwd(s, t, y)
-    elt = s.element_size()
+    _, stats = kd.kd_loss_fwd(*sets[0])
+    elt = sets[0][0].element_size()
+    regime = kd.plan(T, V, torch.cuda.get_device_properties(0)
+                     .multi_processor_count)["regime"]
+    plain_iters = 10 if T * V >= 1 << 26 else 50
     fwd_bytes = 2 * T * V * elt + T * 4 + T * 4 + T * 12
     bwd_bytes = 3 * T * V * elt + T * 4 + T * 12 + T * 4
-    fwd = {"ms": time_ms(lambda: kd.kd_loss_fwd(s, t, y)),
-           "plain_ms": time_ms(lambda: kd.kd_loss_fwd_plain(s, t, y, tau=2.0,
-                                                            alpha=0.5))}
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(fwd_bytes,
-                                                KD_FWD_OPS_PER_ELEM * T * V)
-    bwd = {"ms": time_ms(lambda: kd.kd_loss_bwd(s, t, y, stats, g)),
-           "plain_ms": time_ms(lambda: kd.kd_loss_bwd_plain(
-               s, t, y, stats, g, tau=2.0, alpha=0.5))}
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(bwd_bytes,
-                                                KD_BWD_OPS_PER_ELEM * T * V)
-    return fwd, bwd
+    out = []
+    for port, old, keys, old_key, plain, nbytes, ops in (
+            (lambda: kd.kd_loss_fwd(*nxt()),
+             lambda: kd_first.fwd(first, *nxt()),
+             ("kd_fwd_rows", "kd_fwd_stream"), ("kd_fwd_kernel",),
+             lambda: kd.kd_loss_fwd_plain(*nxt(), tau=2.0, alpha=0.5),
+             fwd_bytes, KD_FWD_OPS_PER_ELEM),
+            (lambda: kd.kd_loss_bwd(*nxt(), stats, g),
+             lambda: kd_first.bwd(first, *nxt(), stats, g),
+             ("kd_bwd_rows", "kd_bwd_chunk"), ("kd_bwd_kernel",),
+             lambda: kd.kd_loss_bwd_plain(*nxt(), stats, g, tau=2.0,
+                                          alpha=0.5),
+             bwd_bytes, KD_BWD_OPS_PER_ELEM)):
+        r = {"regime": regime, "input_sets": len(sets), "ms": time_ms(port),
+             "first_ms": time_ms(old), "first_ms_again": time_ms(old),
+             "ms_again": time_ms(port),
+             "device_us": device_us(port, keys),
+             "first_device_us": device_us(old, old_key),
+             "plain_ms": time_ms(plain, iters=plain_iters)}
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops * T * V)
+        out.append(r)
+    return out
 
 
 def _merge_round_timing():
@@ -844,23 +962,24 @@ def fa_work(shape, elt: int) -> tuple[float, float]:
 def device_us(fn, keys, calls: int = 20) -> float:
     """Device time per call of ``fn`` spent in the kernels whose names
     contain one of ``keys``: ``torch.profiler`` over ``calls`` calls after
-    a warm-up.  Raises when no such kernel ran."""
+    a warm-up.  Raises when three windows in a row saw no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and any(k in e.key for k in keys))
-    if us <= 0:
-        raise RuntimeError(f"the profiler saw no device time in {keys}")
-    return us / calls
+    for _ in range(3):      # a window now and then comes back without events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and any(k in e.key for k in keys))
+        if us > 0:
+            return us / calls
+    raise RuntimeError(f"the profiler saw no device time in {keys}")
 
 
 def _fa_timing(shape, seed):
@@ -893,11 +1012,13 @@ def _fa_timing(shape, seed):
     return out
 
 
-def phase_timing(errs, path_counts, variants, smi):
+def phase_timing(errs, path_counts, variants, smi, first):
     import torch
     rows_path = PATH_ROWS
-    kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
-    f64, b64 = _kd_timing(64, 10, torch.float32, 22)
+    kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20, first)
+    emit({"timing": f"kd T={rows_path} V=10 float32 (the packed path's "
+          "step)", "fwd": kd_fwd, "bwd": kd_bwd, "card": smi})
+    f64, b64 = _kd_timing(64, 10, torch.float32, 22, first)
     emit({"timing": "kd T=64 V=10 float32 (the loop engine's step)",
           "fwd": f64, "bwd": b64, "card": smi})
     km_path = _kmeans_timing(KM_N, 5, 23)
@@ -905,10 +1026,16 @@ def phase_timing(errs, path_counts, variants, smi):
     emit({"timing": f"kmeans_assign N=16384 F={KM_F} K=8", **km_big,
           "card": smi})
     merge = _merge_round_timing()
-    for dtype in (torch.float32, torch.bfloat16):
-        f, b = _kd_timing(2048, 32000, dtype, 21)
-        emit({"timing": f"kd T=2048 V=32000 {str(dtype)[6:]}",
-              "fwd": f, "bwd": b, "card": smi})
+    kd_large = {"fwd": [], "bwd": []}
+    for T, V, dtype in ((2048, 32000, torch.float32),
+                        (2048, 32000, torch.bfloat16),
+                        (1024, 151936, torch.bfloat16),
+                        (16, 151936, torch.bfloat16)):
+        f, b = _kd_timing(T, V, dtype, 21, first)
+        shape = f"T={T} V={V} {str(dtype)[6:]}"
+        emit({"timing": f"kd {shape}", "fwd": f, "bwd": b, "card": smi})
+        kd_large["fwd"].append({"shape": shape, **f})
+        kd_large["bwd"].append({"shape": shape, **b})
     emit({"timing": "fused_merge, one round (10 leaves, N=40, one launch)",
           **merge, "card": smi})
     fa_prefill = _fa_timing(FA_PREFILL, 30)
@@ -921,12 +1048,14 @@ def phase_timing(errs, path_counts, variants, smi):
          "source": src + "kd_softmax_kl.cu",
          "replaces": "src/repro/kernels/kd_softmax_kl.py:33",
          "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
-         **kd_fwd, "library_ms": None, "path": "run_federated packed"},
+         **kd_fwd, "library_ms": None, "large": kd_large["fwd"],
+         "path": "run_federated packed"},
         {"name": "kd_softmax_kl_bwd", "route": "cuda",
          "source": src + "kd_softmax_kl.cu",
          "replaces": "src/repro/kernels/kd_softmax_kl.py:118",
          "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
-         **kd_bwd, "library_ms": None, "path": "run_federated packed"},
+         **kd_bwd, "library_ms": None, "large": kd_large["bwd"],
+         "path": "run_federated packed"},
         {"name": "fused_merge", "route": "cuda",
          "source": src + "fused_merge.cu",
          "replaces": "src/repro/kernels/fused_merge.py:30",
@@ -960,7 +1089,9 @@ def phase_timing(errs, path_counts, variants, smi):
 
 
 # ---------------------------------------------------------- --profile mode
-PORT_KERNELS = ("kd_fwd_kernel", "kd_bwd_kernel", "fused_merge_leaves_kernel",
+PORT_KERNELS = ("kd_fwd_rows_kernel", "kd_fwd_stream_kernel",
+                "kd_bwd_rows_kernel", "kd_bwd_chunk_kernel",
+                "fused_merge_leaves_kernel",
                 "kmeans_assign_split_kernel", "kmeans_assign_stream_kernel",
                 "fa_fwd_kernel", "fa_merge_kernel", "fa_tc_kernel",
                 "fa_decode_kernel")
@@ -1188,7 +1319,7 @@ def main() -> int:
     from repro_torch.data.synthetic import load_dataset
 
     smi = phase_setup()
-    phase_build()
+    first = phase_build()
     if sys.argv[1:] == ["--profile"]:
         phase_profile(load_dataset("mnist"), smi)
         phase_profile_lm(smi)
@@ -1218,7 +1349,7 @@ def main() -> int:
                    "fused_merge": merge_counts["fused_merge"],
                    "kmeans_assign": packed_counts["kmeans_assign"],
                    "flash_attention": lm_counts["flash_attention"]}
-    phase_timing(errs, path_counts, lm_variants, smi)
+    phase_timing(errs, path_counts, lm_variants, smi, first)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,13 @@ plain versions and public entry points (``ops``).
 
 ``KERNELS`` maps each kernel's name to its wrapper; every wrapper carries a
 ``launches`` count that goes up by one where it launches its kernel.
-Three also count their launches by kind (``variant_launches``):
+Each also counts them by kind (``variant_launches``):
 ``flash_attention`` by the kernel each call took (``v1``, ``tensor_core``,
 ``decode``), ``fused_merge`` by entry (``leaf``: one (N, D) stack,
-``leaves``: every leaf of N clients' parameters in one launch) and
-``kmeans_assign`` by regime (``split``, ``stream``); ``reset_launches``
-zeroes those too.
+``leaves``: every leaf of N clients' parameters in one launch),
+``kmeans_assign`` by regime (``split``, ``stream``) and the KD forward and
+backward (``kd_loss_fwd``, ``kd_loss_bwd``) by regime (``rows``,
+``stream``); ``reset_launches`` zeroes those too.
 """
 from repro_torch.kernels import (flash_attention, fused_merge, kd_softmax_kl,
                                  kmeans_assign, ops, ref)
@@ -26,7 +27,8 @@ def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     for fn in (flash_attention.flash_attention, fused_merge.fused_merge,
-               kmeans_assign.kmeans_assign):
+               kmeans_assign.kmeans_assign, kd_softmax_kl.kd_loss_fwd,
+               kd_softmax_kl.kd_loss_bwd):
         for kind in fn.variant_launches:
             fn.variant_launches[kind] = 0
 

@@ -36,10 +36,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 # C signature of every exported function: (argtypes), restype is int
 SIGNATURES = {
-    "fedsikd_kd_fwd": (_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_float, _P),
-    "fedsikd_kd_bwd": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_float, _P),
+    # s, t, y, loss, stats; rows, V, dtype; tau, alpha, log2(e)/tau, 1/tau;
+    # regime, tile rows, lanes, vec; stream
+    "fedsikd_kd_fwd": (_P,) * 5 + (ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int) + (ctypes.c_float,) * 4
+    + (ctypes.c_int,) * 4 + (_P,),
+    # s, t, y, stats, g, ds; rows, V, dtype; tau, alpha, log2(e)/tau;
+    # regime, tile rows, vec; stream
+    "fedsikd_kd_bwd": (_P,) * 6 + (ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int) + (ctypes.c_float,) * 3
+    + (ctypes.c_int,) * 3 + (_P,),
     # row-pointer table, tile table, w, s, out; N, n_tiles, dtype; decay;
     # stream
     "fedsikd_fused_merge": (_P,) * 5 + (ctypes.c_int,) * 3

@@ -6,7 +6,9 @@ one, run them with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of ``chip_smoke.py``: 2e-5 on the f32 KD loss and
-stats, 1e-5 on its gradient, 5e-2 in bf16, 1e-5 on the f32 merge and 2e-2
+stats, 1e-5 on its gradient, 5e-2 in bf16 (``KD_TOL``; its ``KD_CASES``
+give the shapes of each KD regime) and, for a bf16 gradient, one rounding
+of the float32 one (``KD_BF16_DS``), 1e-5 on the f32 merge and 2e-2
 on a bf16 leaf (single- and multi-leaf entries), 1e-4 relative on k-means
 distances with no assignment differing (both regimes), and ``chip_smoke.FA_TOL`` on flash attention (2e-5 in f32; in
 bf16 one rounding of the output, rtol 8e-3 over an atol of 1e-4), whose
@@ -69,6 +71,78 @@ def test_kd_kernels_match_plain(dev, T, V, dtype):
                                atol=btol)
     assert launch_counts()["kd_softmax_kl_fwd"] == 1
     assert launch_counts()["kd_softmax_kl_bwd"] == 1
+
+
+def _kd_call_checked(s, t, y, g, tau, alpha, regime):
+    """One forward and one backward call against the plain versions at
+    ``chip_smoke.KD_TOL`` (and a bf16 ds at ``KD_BF16_DS`` against the
+    plain ds in float32); each call exactly one launch, of ``regime``."""
+    name = str(s.dtype)[6:]
+    tol, btol = chip_smoke.KD_TOL[name]
+    reset_launches()
+    loss, stats = kd.kd_loss_fwd(s, t, y, tau=tau, alpha=alpha)
+    ds = kd.kd_loss_bwd(s, t, y, stats, g, tau=tau, alpha=alpha)
+    one = {k: int(k == regime) for k in kd.VARIANTS}
+    assert launch_counts()["kd_softmax_kl_fwd"] == 1
+    assert launch_counts()["kd_softmax_kl_bwd"] == 1
+    assert kd.kd_loss_fwd.variant_launches == one
+    assert kd.kd_loss_bwd.variant_launches == one
+    loss_p, stats_p = kd.kd_loss_fwd_plain(s, t, y, tau=tau, alpha=alpha)
+    ds_p = kd.kd_loss_bwd_plain(s, t, y, stats_p, g, tau=tau, alpha=alpha)
+    torch.testing.assert_close(loss, loss_p, rtol=tol, atol=tol * 10)
+    torch.testing.assert_close(stats, stats_p, rtol=tol, atol=tol * 10)
+    assert ds.dtype == s.dtype
+    torch.testing.assert_close(ds.float(), ds_p.float(), rtol=btol,
+                               atol=btol)
+    if s.dtype == torch.bfloat16:
+        want = kd.kd_loss_bwd_plain(s.float(), t.float(), y, stats_p, g,
+                                    tau=tau, alpha=alpha)
+        rtol, floor = chip_smoke.KD_BF16_DS
+        torch.testing.assert_close(ds.float(), want, rtol=rtol,
+                                   atol=floor * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("T,V", chip_smoke.KD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kd_regimes_match_plain(dev, T, V, dtype):
+    """``chip_smoke.py``'s phase-2 KD cases, with its inputs
+    (``_kd_inputs``) and tolerances: rows (V = 10), stream (an LLM
+    vocabulary, an odd V whose rows are not 16-byte aligned, and fewer rows
+    than SMs)."""
+    s, t, y = chip_smoke._kd_inputs(T, V, dtype, T + V)
+    regime = kd.plan(T, V, torch.cuda.get_device_properties(
+        dev).multi_processor_count)["regime"]
+    _kd_call_checked(s, t, y, chip_smoke._lane_grads(y, T), 2.0, 0.5, regime)
+
+
+@pytest.mark.parametrize("T,V", [(64, 10), (300, 32003), (5, 50257)],
+                         ids=str)
+@pytest.mark.parametrize("tau,alpha", [(0.7, 0.25), (3.0, 1.0)])
+def test_kd_regimes_hold_at_other_temperatures(dev, T, V, tau, alpha):
+    """The base-2 arithmetic (logits times log2(e)/tau, no division) at a
+    tau that is not a power of two, in each regime, f32 and its bound."""
+    s, t, y = chip_smoke._kd_inputs(T, V, torch.float32, T + V + 1)
+    regime = kd.plan(T, V, torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)["regime"]
+    _kd_call_checked(s, t, y, chip_smoke._lane_grads(y, T), tau, alpha,
+                     regime)
+
+
+@pytest.mark.parametrize("T,V", [(64, 10), (300, 32003), (5, 50257)],
+                         ids=str)
+def test_kd_misaligned_view_matches_plain(dev, T, V):
+    """s one element into its buffer: s, t and ds do not lie alike modulo
+    16 bytes, so every element takes the scalar path (the rows regime
+    stages each tensor with its own offset)."""
+    s, t, y = chip_smoke._kd_inputs(T, V, torch.float32, T + V + 2)
+    buf = torch.empty(T * V + 1, device=dev)
+    buf[1:].copy_(s.reshape(-1))
+    s1 = buf[1:].view(T, V)
+    assert s1.data_ptr() % 16 and s1.is_contiguous()
+    regime = kd.plan(T, V, torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)["regime"]
+    _kd_call_checked(s1, t, y, chip_smoke._lane_grads(y, T), 2.0, 0.5,
+                     regime)
 
 
 def test_kd_autograd_function_matches_cpu(dev):
