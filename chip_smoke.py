@@ -4,14 +4,15 @@ GPU.  Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(and, beside them, the KD kernels' first design from ``tools/`` that phase
-5 times against the port's), holds each kernel against its plain PyTorch
-version on the card (the KD kernels in each of their two regimes, rows
-and stream, at ``KD_CASES``), drives the fused distill step and the
-FedSiKD main path (``run_federated`` on the full MNIST twin, 40 clients, 3
-rounds) on the card on both engines (the loop engine, then the packed
-engine with all 40 clients as lanes of one stacked program), then serves
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each kernel against its plain PyTorch version on the card (the KD
+kernels in each of their two regimes, rows and stream, at ``KD_CASES``),
+drives the fused distill step and the FedSiKD main path (``run_federated``
+on the full MNIST twin, 40 clients, 3 rounds) on the card on both engines
+(the loop engine, then the packed engine with all 40 clients as lanes of
+one stacked program), then the paper's baselines on the same twin (loop
+FedAvg, FedProx and FL+HC, each merge one fused-merge launch, and packed
+FedAvg with all 40 clients as lanes, whose merge is a product), then serves
 the full-width, full-depth qwen2.5-3b in bf16 (random weights from a seed):
 a prefill of 2 x 4096 tokens and 32 greedy decode steps through
 ``make_prefill_step`` / ``make_decode_step``, with every attention in a
@@ -19,9 +20,10 @@ flash-attention kernel (the bf16 prefill on the tensor-core kernel, every
 decode step on the decode kernel). It checks that each path went through
 its kernels (the loop engine's merge one multi-leaf launch a round, the
 clustering step's 255 k-means calls on the split kernel, every KD launch of
-the fused distill step and the packed engine on the rows kernels), holds
-the packed engine's per-round accuracy and losses to the loop engine's and
-a float32 2-layer serve's decode logits to a full forward of the same
+the fused distill step and the packed engine on the rows kernels, FedAvg's
+and FedProx's merge one launch a round and FL+HC's one a cluster), holds
+each packed engine's per-round accuracy and eval loss to its loop engine's
+and a float32 2-layer serve's decode logits to a full forward of the same
 tokens, times every kernel beside its bound, and prints one JSON object per
 line. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -31,10 +33,10 @@ It imports nothing of JAX and nothing of the JAX package.
     python3 chip_smoke.py --profile
 
 profiles one steady round of the same main path on each engine, the
-clustering step, and one prefill and one decode step of the served model
-instead (host wall time, device busy time and idle share, launches, the
-kernels that take the device's time) and prints each as one JSON line; it
-checks nothing.
+clustering step, one steady FedAvg round on each engine, and one prefill
+and one decode step of the served model instead (host wall time, device
+busy time and idle share, launches, the kernels that take the device's
+time) and prints each as one JSON line; it checks nothing.
 """
 from __future__ import annotations
 
@@ -192,24 +194,15 @@ def phase_setup():
 
 # ------------------------------------------------------------------ phase 1
 def phase_build():
-    """The port's library, and beside it (one more nvcc, started first) the
-    KD kernels' first design that phase 5 times against the port's."""
+    """The port's library: one nvcc per source, all started together."""
     from repro_torch.kernels import _build
-    from tools import kd_first
-    t0 = time.perf_counter()
-    proc, first_path = kd_first.start_build(_build._nvcc())
     info = _build.build()
     _build.library()
-    if proc.wait() != 0:
-        raise RuntimeError("the KD kernels' first design did not build: "
-                           + (first_path.parent / "kd_first.log").read_text())
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "built": info["built"],
           "seconds": info["seconds"], "library": info["path"],
-          "with_first_design_seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
-    return kd_first.load(first_path)
 
 
 # ------------------------------------------------------------------ phase 2
@@ -249,18 +242,20 @@ def _merge_inputs(N, D, dtype, seed, stale: bool):
     return (x.to(DEV, dtype), w.to(DEV), torch.from_numpy(s).to(DEV))
 
 
-def _student_rows(N, dtypes, seed, *, offset: int = 0, device=None):
-    """N clients' copies of the MNIST student's ten leaves as separate
-    tensors on ``device`` (default ``DEV``; leaf l in ``dtypes[l %
-    len(dtypes)]``): the loop engine's merge input, with host-side weights
-    and staleness.  With ``offset`` > 0 every odd client's leaves are views
-    into a buffer that starts ``offset`` elements in (rows not 16-byte
-    aligned, contiguous all the same).  ``tests/test_torch_cuda.py`` builds
-    its merge inputs here too."""
+def _client_rows(N, dtypes, seed, *, student: bool = True, offset: int = 0,
+                 device=None):
+    """N clients' copies of the ten leaves of the MNIST student (FedSiKD's
+    merge) or, with ``student=False``, of the teacher (the baselines'
+    model) as separate tensors on ``device`` (default ``DEV``; leaf l in
+    ``dtypes[l % len(dtypes)]``): the loop engine's merge input, with
+    host-side weights and staleness.  With ``offset`` > 0 every odd
+    client's leaves are views into a buffer that starts ``offset`` elements
+    in (rows not 16-byte aligned, contiguous all the same).
+    ``tests/test_torch_cuda.py`` builds its merge inputs here too."""
     import numpy as np
     import torch
     from repro_torch.models.cnn import MnistCNN
-    shapes = [p.shape for p in MnistCNN(student=True).parameters()]
+    shapes = [p.shape for p in MnistCNN(student=student).parameters()]
     r = np.random.default_rng(seed)
     rows = []
     for n in range(N):
@@ -409,28 +404,43 @@ def phase_kernel_checks():
         e = check_close(f"fused_merge N={N} D={D} {str(dtype)[6:]} "
                         f"decay={decay}", out, out_p, tol, tol)
         errs["fused_merge"] = max(errs["fused_merge"], e)
-    # the multi-leaf entry: one launch for the student's ten leaves
-    for N, dtype, decay, offset, tol, seed in (
-            (40, torch.float32, 0.5, 0, 1e-5, 13),
-            (300, torch.float32, 1.5, 0, 1e-5, 14),
-            (40, torch.bfloat16, 0.0, 0, 2e-2, 15),
-            (40, torch.float32, 0.5, 1, 1e-5, 16)):
-        rows, w, s = _student_rows(N, (dtype,), seed, offset=offset)
+    # the multi-leaf entry: one launch for a model's ten leaves
+    def leaves_check(tag, rows, w, s, decay, tol):
         before = dict(fm.fused_merge.variant_launches)
         out = fm.fused_merge_leaves(rows, w, s, decay=decay)
         want = fm.fused_merge_leaves_plain(rows, w, s, decay=decay)
         torch.cuda.synchronize()
         took = {k: v - before[k] for k, v in
                 fm.fused_merge.variant_launches.items()}
-        tag = (f"fused_merge_leaves N={N} 10 student leaves "
-               f"{str(dtype)[6:]} decay={decay}"
-               + (" misaligned rows" if offset else ""))
         if took != {"leaf": 0, "leaves": 1}:
             raise RuntimeError(f"{tag}: expected one 'leaves' launch, "
                                f"counted {took}")
         e = max(check_close(f"{tag} leaf {l}", o, ref, tol, tol)
                 for l, (o, ref) in enumerate(zip(out, want)))
         errs["fused_merge"] = max(errs["fused_merge"], e)
+
+    for N, dtype, decay, offset, tol, seed in (
+            (40, torch.float32, 0.5, 0, 1e-5, 13),
+            (300, torch.float32, 1.5, 0, 1e-5, 14),
+            (40, torch.bfloat16, 0.0, 0, 2e-2, 15),
+            (40, torch.float32, 0.5, 1, 1e-5, 16)):
+        rows, w, s = _client_rows(N, (dtype,), seed, offset=offset)
+        leaves_check(f"fused_merge_leaves N={N} 10 student leaves "
+                     f"{str(dtype)[6:]} decay={decay}"
+                     + (" misaligned rows" if offset else ""),
+                     rows, w, s, decay, tol)
+    # the baselines' merges: the teacher's ten leaves under example-count
+    # weights, no staleness; N = 40 is loop FedAvg's and FedProx's round,
+    # N = 7 (one client with no examples) and N = 1 are FL+HC clusters
+    for N, seed in ((40, 40), (7, 41), (1, 42)):
+        rows, _, _ = _client_rows(N, (torch.float32,), seed, student=False)
+        w = (np.random.default_rng(seed).integers(1, 3000, N)
+             .astype(np.float32))
+        if N == 7:
+            w[3] = 0.0
+        leaves_check(f"fused_merge_leaves N={N} 10 teacher leaves float32, "
+                     f"example counts {w.astype(int).tolist()[:8]}",
+                     rows, w, np.zeros(N, np.float32), 0.0, 1e-5)
     errs["kmeans_assign"] = 0.0
     for N, K, F, seed in [(KM_N, k, KM_F, 7 + k) for k in (2, 3, 4, 5)] + [
             (16384, 8, KM_F, 12), (16384, 16, KM_F, 17),
@@ -672,7 +682,104 @@ def phase_packed_path(ds, loop_h):
             raise RuntimeError(f"packed {k} {h[k]} is more than "
                                f"{LOSS_RTOL_TO_LOOP} relative from the loop "
                                f"engine's {loop_h[k]}")
-    return counts
+    return counts, h
+
+
+# ----------------------------------------------------------- phase 4b2
+BASELINE_MU = 0.01                     # FedProx's mu (FedConfig's default)
+FLHC_K = 4                             # FL+HC's clusters (its default)
+
+
+def _baseline_run(ds, name, cfg):
+    """One baseline run on the card, its launch counts read just after; the
+    counts are zeroed just before."""
+    from repro_torch.fed.rounds import run_federated
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import launch_counts, reset_launches
+    reset_launches()
+    t0 = time.perf_counter()
+    h = run_federated(ds, cfg, device=DEV)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    merge_variants = dict(fm.fused_merge.variant_launches)
+    vals = h["acc"] + h["loss"] + h.get("train_loss", [])
+    if not all(math.isfinite(v) for v in vals):
+        raise RuntimeError(f"non-finite {name} metrics: {vals}")
+    return h, total, counts, merge_variants
+
+
+def phase_baselines_path(ds, fedsikd_loop_h, fedsikd_packed_h):
+    """The paper's baselines on the main path's configuration (full MNIST
+    twin, 40 clients, alpha 0.5, batch 64, ROUNDS rounds; the teacher CNN
+    of 95,242 parameters is the federated model): loop FedAvg, loop FedProx
+    and loop FL+HC (its round 1 is the clustering pre-round), whose merges
+    are fused-merge launches (one a round, and one a cluster for FL+HC),
+    then packed FedAvg and packed FedProx with all 40 clients as lanes,
+    whose merge is an (S,) product a leaf and launches no fused merge; each
+    packed run is held to its loop run.  FedSiKD's round times from this
+    same call stand beside theirs.  Returns each run's fused-merge
+    launches."""
+    from repro_torch.fed.rounds import FedConfig
+
+    runs = [("fedavg loop", FedConfig(algorithm="fedavg", rounds=ROUNDS)),
+            ("fedprox loop", FedConfig(algorithm="fedprox", rounds=ROUNDS,
+                                       prox_mu=BASELINE_MU)),
+            ("flhc loop", FedConfig(algorithm="flhc", rounds=ROUNDS,
+                                    num_clusters=FLHC_K)),
+            ("fedavg packed", FedConfig(algorithm="fedavg", engine="sharded",
+                                        pack=PACKED_LANES, rounds=ROUNDS)),
+            ("fedprox packed", FedConfig(algorithm="fedprox",
+                                         engine="sharded", pack=PACKED_LANES,
+                                         rounds=ROUNDS, prox_mu=BASELINE_MU))]
+    hist, merges = {}, {}
+    for name, cfg in runs:
+        h, total, counts, merge_variants = _baseline_run(ds, name, cfg)
+        hist[name], merges[name] = h, counts["fused_merge"]
+        if name == "flhc loop":
+            want = ROUNDS * h["num_clusters"]
+        elif cfg.engine == "loop":
+            want = ROUNDS
+        else:
+            want = 0
+        emit({"phase": "baselines_path", "run": name, "config":
+              f"{cfg.algorithm} {cfg.engine}"
+              + (f" pack={cfg.pack}" if cfg.engine == "sharded" else "")
+              + f" mnist {cfg.num_clients} clients alpha={cfg.alpha} "
+              f"batch={cfg.batch_size} rounds={ROUNDS}"
+              + (f" mu={cfg.prox_mu}" if cfg.algorithm == "fedprox" else "")
+              + (f" K={h['num_clusters']}" if "num_clusters" in h else ""),
+              "acc": h["acc"], "loss": h["loss"],
+              "train_loss": h.get("train_loss"),
+              "round_seconds": h["round_seconds"], "seconds_total": total,
+              "participants": h["participants"],
+              "fedsikd_loop_round_seconds": fedsikd_loop_h["round_seconds"],
+              "fedsikd_packed_round_seconds":
+              fedsikd_packed_h["round_seconds"],
+              "launches": counts, "fused_merge_variants": merge_variants,
+              "expected_fused_merge_launches": want})
+        if merge_variants != {"leaf": 0, "leaves": want} \
+                or counts["fused_merge"] != want:
+            raise RuntimeError(f"{name}: expected {want} fused-merge "
+                               f"launches, all 'leaves', counted "
+                               f"{counts['fused_merge']} ({merge_variants})")
+    for alg in ("fedavg", "fedprox"):
+        loop, packed = hist[f"{alg} loop"], hist[f"{alg} packed"]
+        gaps = [abs(a - b) for a, b in zip(packed["acc"], loop["acc"])]
+        loss_gaps = [abs(a - b) / abs(b)
+                     for a, b in zip(packed["loss"], loop["loss"])]
+        emit({"check": f"baselines_path: packed {alg} against loop {alg}",
+              "acc_gap": gaps, "loss_rel_gap": loss_gaps,
+              "ok": max(gaps) <= 0.03
+              and max(loss_gaps) <= LOSS_RTOL_TO_LOOP})
+        if max(gaps) > 0.03:
+            raise RuntimeError(f"packed {alg} accuracy {packed['acc']} is "
+                               f"more than 3 points from the loop engine's "
+                               f"{loop['acc']}")
+        if max(loss_gaps) > LOSS_RTOL_TO_LOOP:
+            raise RuntimeError(f"packed {alg} loss {packed['loss']} is more "
+                               f"than {LOSS_RTOL_TO_LOOP} relative from the "
+                               f"loop engine's {loop['loss']}")
+    return merges
 
 
 # ----------------------------------------------------------- phase 4c
@@ -838,17 +945,14 @@ def _kd_sets(T, V, dtype, seed):
     return sets, lambda: sets[next(turn) % n]
 
 
-def _kd_timing(T, V, dtype, seed, first):
+def _kd_timing(T, V, dtype, seed):
     """One KD forward and one backward call at (T, V) beside their bounds:
     the port's kernels (``ms`` by CUDA events, ``device_us`` by the
-    profiler, the ``regime`` of ``plan``), the first design built from
-    ``tools/kd_softmax_kl_first.cu`` (``first_ms``, ``first_device_us``)
-    on the same inputs, timed in turns (port, first, first, port: the
-    second pair as ``*_again``), and the plain versions.  Each call takes
-    the next of ``input_sets`` copies of the inputs (``_kd_sets``)."""
+    profiler, the ``regime`` of ``plan``) and the plain versions.  Each
+    call takes the next of ``input_sets`` copies of the inputs
+    (``_kd_sets``)."""
     import torch
     from repro_torch.kernels import kd_softmax_kl as kd
-    from tools import kd_first
     sets, nxt = _kd_sets(T, V, dtype, seed)
     g = torch.ones(T, dtype=torch.float32, device=DEV)
     _, stats = kd.kd_loss_fwd(*sets[0])
@@ -859,41 +963,38 @@ def _kd_timing(T, V, dtype, seed, first):
     fwd_bytes = 2 * T * V * elt + T * 4 + T * 4 + T * 12
     bwd_bytes = 3 * T * V * elt + T * 4 + T * 12 + T * 4
     out = []
-    for port, old, keys, old_key, plain, nbytes, ops in (
+    for port, keys, plain, nbytes, ops in (
             (lambda: kd.kd_loss_fwd(*nxt()),
-             lambda: kd_first.fwd(first, *nxt()),
-             ("kd_fwd_rows", "kd_fwd_stream"), ("kd_fwd_kernel",),
+             ("kd_fwd_rows", "kd_fwd_stream"),
              lambda: kd.kd_loss_fwd_plain(*nxt(), tau=2.0, alpha=0.5),
              fwd_bytes, KD_FWD_OPS_PER_ELEM),
             (lambda: kd.kd_loss_bwd(*nxt(), stats, g),
-             lambda: kd_first.bwd(first, *nxt(), stats, g),
-             ("kd_bwd_rows", "kd_bwd_chunk"), ("kd_bwd_kernel",),
+             ("kd_bwd_rows", "kd_bwd_chunk"),
              lambda: kd.kd_loss_bwd_plain(*nxt(), stats, g, tau=2.0,
                                           alpha=0.5),
              bwd_bytes, KD_BWD_OPS_PER_ELEM)):
         r = {"regime": regime, "input_sets": len(sets), "ms": time_ms(port),
-             "first_ms": time_ms(old), "first_ms_again": time_ms(old),
-             "ms_again": time_ms(port),
              "device_us": device_us(port, keys),
-             "first_device_us": device_us(old, old_key),
              "plain_ms": time_ms(plain, iters=plain_iters)}
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops * T * V)
         out.append(r)
     return out
 
 
-def _merge_round_timing():
-    """One round's merge of the MNIST student, 40 client dicts of its ten
-    leaves (no staleness, as on the main path), in one call: the one-launch
-    multi-leaf entry the path takes (``ms``; ``device_us`` its kernel,
-    ``device_all_us`` every device event of a call, the table's copy
-    included); the earlier path written out (a torch.stack of the clients'
-    copies and one single-leaf launch a leaf); the plain version; and
-    ``w @ x`` per leaf on ready stacks (the library column)."""
+def _merge_round_timing(*, student: bool):
+    """One merge of 40 client dicts of the MNIST student's ten leaves
+    (FedSiKD's round) or of the teacher's (``student=False``: loop FedAvg's
+    and FedProx's round; no staleness, as on the paths), in one call: the
+    one-launch multi-leaf entry the paths take (``ms``; ``device_us`` its
+    kernel, ``device_all_us`` every device event of a call, the table's
+    copy included); the plain version; ``w @ x`` per leaf on ready stacks
+    (the library column); and, for the student only, the earlier path
+    written out (a torch.stack of the clients' copies and one single-leaf
+    launch a leaf), the design the multi-leaf entry replaced."""
     import numpy as np
     import torch
     from repro_torch.kernels import fused_merge as fm
-    rows, w, _ = _student_rows(40, (torch.float32,), 10)
+    rows, w, _ = _client_rows(40, (torch.float32,), 10, student=student)
     s = np.zeros_like(w)
     N, L = len(rows), len(rows[0])
     wd, sd = torch.from_numpy(w).to(DEV), torch.from_numpy(s).to(DEV)
@@ -913,12 +1014,13 @@ def _merge_round_timing():
     out = {"ms": time_ms(leaves),
            "device_us": device_us(leaves, ("fused_merge_leaves_kernel",)),
            "device_all_us": device_us(leaves, ("",)),
-           "earlier_path_ms": time_ms(earlier),
-           "earlier_path_device_all_us": device_us(earlier, ("",)),
            "plain_ms": time_ms(lambda: fm.fused_merge_leaves_plain(rows, w,
                                                                    s)),
            "library_ms": time_ms(lambda: [wn @ x for x in stacks]),
            "leaf_sizes": sizes, "bytes": nbytes}
+    if student:
+        out["earlier_path_ms"] = time_ms(earlier)
+        out["earlier_path_device_all_us"] = device_us(earlier, ("",))
     out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops)
     return out
 
@@ -1012,32 +1114,35 @@ def _fa_timing(shape, seed):
     return out
 
 
-def phase_timing(errs, path_counts, variants, smi, first):
+def phase_timing(errs, path_counts, merge_paths, variants, smi):
     import torch
     rows_path = PATH_ROWS
-    kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20, first)
+    kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
     emit({"timing": f"kd T={rows_path} V=10 float32 (the packed path's "
           "step)", "fwd": kd_fwd, "bwd": kd_bwd, "card": smi})
-    f64, b64 = _kd_timing(64, 10, torch.float32, 22, first)
+    f64, b64 = _kd_timing(64, 10, torch.float32, 22)
     emit({"timing": "kd T=64 V=10 float32 (the loop engine's step)",
           "fwd": f64, "bwd": b64, "card": smi})
     km_path = _kmeans_timing(KM_N, 5, 23)
     km_big = _kmeans_timing(16384, 8, 24)
     emit({"timing": f"kmeans_assign N=16384 F={KM_F} K=8", **km_big,
           "card": smi})
-    merge = _merge_round_timing()
+    merge = _merge_round_timing(student=True)
+    merge_teacher = _merge_round_timing(student=False)
     kd_large = {"fwd": [], "bwd": []}
     for T, V, dtype in ((2048, 32000, torch.float32),
                         (2048, 32000, torch.bfloat16),
                         (1024, 151936, torch.bfloat16),
                         (16, 151936, torch.bfloat16)):
-        f, b = _kd_timing(T, V, dtype, 21, first)
+        f, b = _kd_timing(T, V, dtype, 21)
         shape = f"T={T} V={V} {str(dtype)[6:]}"
         emit({"timing": f"kd {shape}", "fwd": f, "bwd": b, "card": smi})
         kd_large["fwd"].append({"shape": shape, **f})
         kd_large["bwd"].append({"shape": shape, **b})
     emit({"timing": "fused_merge, one round (10 leaves, N=40, one launch)",
           **merge, "card": smi})
+    emit({"timing": "fused_merge, one FedAvg round (the teacher's 10 "
+          "leaves, N=40, one launch)", **merge_teacher, "card": smi})
     fa_prefill = _fa_timing(FA_PREFILL, 30)
     fa_decode = _fa_timing(FA_DECODE[-1], 31)
     emit({"timing": "flash_attention, the served model's decode step",
@@ -1063,6 +1168,12 @@ def phase_timing(errs, path_counts, variants, smi, first):
          **{k: merge[k] for k in ("ms", "device_us", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by",
                                   "earlier_path_ms")},
+         "baselines": {"shape": "N=40, the 10 teacher leaves of one FedAvg "
+                       "round, one launch",
+                       **{k: merge_teacher[k] for k in (
+                           "ms", "device_us", "plain_ms", "library_ms",
+                           "bound_ms", "bound_by")}},
+         "launches_by_path": merge_paths,
          "path": "run_federated loop"},
         {"name": "kmeans_assign", "route": "cuda",
          "source": src + "kmeans_assign.cu",
@@ -1264,6 +1375,26 @@ def phase_profile(ds, smi):
           "launches_per_step": summary["host_kernel_launches"]
           / sum(steps.values()), **summary})
 
+    # FedAvg on each engine: one steady round of the baselines_path runs
+    for engine, pack in (("loop", 1), ("sharded", PACKED_LANES)):
+        cfg = FedConfig(algorithm="fedavg", engine=engine, pack=pack,
+                        rounds=2)
+        alg = make_algorithm(cfg)
+        alg.setup(ds, shards, cfg, cfg.seed, device=torch.device(DEV))
+        alg.run_round(alg.scheduler.plan(1), 1)
+        alg.eval()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            alg.run_round(alg.scheduler.plan(2), 2)
+            t1 = time.perf_counter()
+            alg.eval()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        emit({"phase": "profile", "window": f"fedavg {engine} engine, "
+              "round 2", "card": smi, "train_merge_ms": (t1 - t0) * 1e3,
+              "eval_ms": (t2 - t1) * 1e3, **_device_summary(prof, t2 - t0)})
+
 
 def phase_profile_lm(smi):
     """Under ``torch.profiler``, after one untimed warm-up serve: one
@@ -1319,7 +1450,7 @@ def main() -> int:
     from repro_torch.data.synthetic import load_dataset
 
     smi = phase_setup()
-    first = phase_build()
+    phase_build()
     if sys.argv[1:] == ["--profile"]:
         phase_profile(load_dataset("mnist"), smi)
         phase_profile_lm(smi)
@@ -1332,11 +1463,15 @@ def main() -> int:
     ds = load_dataset("mnist")
     kd_counts = phase_fused_distill(ds)
     merge_counts, loop_h = phase_main_path(ds)
-    packed_counts = phase_packed_path(ds, loop_h)
+    packed_counts, packed_h = phase_packed_path(ds, loop_h)
+    baseline_merges = phase_baselines_path(ds, loop_h, packed_h)
     lm_counts, lm_variants = phase_lm_serve(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
                     ("fused_merge", merge_counts),
+                    *(("fused_merge", {"fused_merge": baseline_merges[r]})
+                      for r in ("fedavg loop", "fedprox loop",
+                                "flhc loop")),
                     ("kd_softmax_kl_fwd", packed_counts),
                     ("kd_softmax_kl_bwd", packed_counts),
                     ("kmeans_assign", merge_counts),
@@ -1349,7 +1484,10 @@ def main() -> int:
                    "fused_merge": merge_counts["fused_merge"],
                    "kmeans_assign": packed_counts["kmeans_assign"],
                    "flash_attention": lm_counts["flash_attention"]}
-    phase_timing(errs, path_counts, lm_variants, smi, first)
+    merge_paths = {"fedsikd loop": merge_counts["fused_merge"],
+                   "fedsikd packed": packed_counts["fused_merge"],
+                   **baseline_merges}
+    phase_timing(errs, path_counts, merge_paths, lm_variants, smi)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,12 @@ def weighted_average(params: Sequence[dict], weights: Sequence[float]):
     return _fused_merge(params, weights)
 
 
+def fedavg(params: Sequence[dict], num_examples: Sequence[int]):
+    """Example-weighted mean (McMahan '17): ``weighted_average`` over the
+    clients' example counts, one fused merge (one launch on the card)."""
+    return weighted_average(params, [float(n) for n in num_examples])
+
+
 def uniform_average(params: Sequence[dict]):
     return weighted_average(params, [1.0] * len(params))
 
@@ -95,3 +101,8 @@ def staleness_weighted_average(params: Sequence[dict], base_weights,
     (``staleness_weights`` is called first for its validation errors)."""
     staleness_weights(base_weights, staleness, decay)
     return _fused_merge(params, base_weights, staleness, decay=decay)
+
+
+def tree_sub(a: dict, b: dict) -> dict:
+    """Leaf-wise ``a - b`` of two param dicts (FL+HC's model updates)."""
+    return {k: v - b[k] for k, v in a.items()}

@@ -12,6 +12,11 @@ parameterized by an algorithm strategy:
 3. ``run_round(plan, rnd)`` — local updates + aggregation for the plan's
    participants; returns per-round metrics.  An all-idle plan is a no-op.
 4. ``eval()`` — (accuracy, loss) of the current global model on the test set.
+
+``setup_rounds`` (default 0) is the number of rounds ``setup`` itself
+consumes: FL+HC's clustering pre-round trains every client and is the
+run's round 1, so the driver records it and starts the round loop after
+it.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ class Algorithm:
 
     name: str = "?"
     engine: str = "loop"
+    setup_rounds: int = 0
     scheduler: RoundScheduler
     labels: Optional[np.ndarray] = None
     progress: bool = False

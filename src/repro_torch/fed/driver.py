@@ -8,7 +8,9 @@ package's schema: ``acc``, ``loss``, ``round``, ``participants``,
 strategy's ``history_extras`` and its round-aligned per-round metrics.
 The port adds one per-round list, ``round_seconds``: the host wall time of
 the round's training, merge and eval, which ends in a device-to-host copy
-and so includes the device's work.
+and so includes the device's work.  A round that ``setup`` consumes
+(``Algorithm.setup_rounds``: FL+HC's clustering pre-round) counts the
+whole of ``setup`` and its eval.
 
 Checkpoint/resume, the semi-async buffer, runtime guards and the client
 lifecycle are not ported yet (``rounds.unported_knobs`` refuses them).
@@ -39,6 +41,7 @@ class RoundDriver:
         shards = ClientStore(
             make_client_shards(ds, cfg.num_clients, cfg.alpha, seed=cfg.seed),
             universe=cfg.universe)
+        t_setup = time.perf_counter()
         alg.setup(ds, shards, cfg, cfg.seed, device=self.device)
         history = {"acc": [], "loss": [], "round": [], "participants": [],
                    "algorithm": cfg.algorithm, "engine": cfg.engine,
@@ -46,7 +49,14 @@ class RoundDriver:
                    "dropout_rate": cfg.dropout_rate, "round_seconds": []}
         history.update(alg.history_extras())
         alg.warmup()
-        for rnd in range(1, cfg.rounds + 1):
+        # rounds consumed by setup itself (FL+HC's clustering pre-round
+        # trains every client and IS the run's round 1)
+        start_round = min(alg.setup_rounds, cfg.rounds)
+        for rnd in range(1, start_round + 1):
+            history["participants"].append(cfg.num_clients)
+            self._record(history, rnd)
+            history["round_seconds"].append(time.perf_counter() - t_setup)
+        for rnd in range(start_round + 1, cfg.rounds + 1):
             t0 = time.perf_counter()
             plan = alg.scheduler.plan(rnd)
             if cfg.prefetch and rnd < cfg.rounds:

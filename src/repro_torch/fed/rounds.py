@@ -2,9 +2,11 @@
 ``repro.fed.rounds.FedConfig`` with every field and every validation) and
 ``run_federated`` (one call = one ``RoundDriver`` run on a torch device).
 
-The port runs the clustered-KD algorithms (``fedsikd`` and the ``random``
-ablation) on the loop engine and, one wave of synchronous rounds, on the
-packed engine (``engine="sharded"``).  Every knob it does not port raises
+The port runs every algorithm on the loop engine and, one wave of
+synchronous rounds, every algorithm but FL+HC on the packed engine
+(``engine="sharded"``): the clustered-KD algorithms (``fedsikd`` and the
+``random`` ablation) and the baselines (``fedavg``, ``fedprox``; FL+HC is
+loop-only, as in JAX).  Every knob it does not port raises
 ``NotImplementedError`` naming its ROADMAP.md item, before any work starts
 (``unported_knobs``).
 """
@@ -356,9 +358,6 @@ def unported_knobs(cfg: FedConfig) -> list[str]:
         if cfg.guards:
             out.append("guards (runtime guards on the packed engine: "
                        "ROADMAP Queue 1 item 9)")
-    if cfg.algorithm in ("fedavg", "fedprox", "flhc"):
-        out.append(f"algorithm={cfg.algorithm!r} (baselines and FL+HC: "
-                   "ROADMAP Queue 1 item 8)")
     if cfg.ckpt_dir is not None or cfg.resume:
         out.append("ckpt_dir/resume (checkpoints: ROADMAP Queue 1 item 9)")
     if cfg.async_mode:

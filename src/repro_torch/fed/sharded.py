@@ -1,6 +1,7 @@
-"""Client-packed federated runtime on one card: the port of the FedSiKD
-parts of ``repro.fed.sharded`` (the round programs and the staging
-helpers ``ShardedClusteredKD`` calls).
+"""Client-packed federated runtime on one card: the port of
+``repro.fed.sharded`` for one wave a round (the FedSiKD round programs,
+the FedAvg/FedProx round program and the staging helpers the packed
+strategies call).
 
 The JAX package hosts ``C = devices x pack`` client lanes on a device mesh
 and ``vmap``s each local step over the lanes inside ``shard_map``.  On one
@@ -28,8 +29,9 @@ Step budgets (``n_steps``) are host numpy arrays, as the strategies build
 them; random streams are integer seeds (``repro_torch.rng``) read only by
 models with dropout (HAR), whose per-lane keep masks are drawn outside the
 vmapped forward (``models.cnn.make_lane_dropout``).  Aggregation is
-``core.cluster_collectives``.  ``make_packed_baseline_round`` (FedAvg /
-FedProx on the packed engine) is not ported yet.
+``core.cluster_collectives``: FedSiKD's round contracts the plan's
+two-level row, FedAvg/FedProx's (``make_packed_baseline_round``) the
+example-weighted row, each one product a leaf.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from repro_torch.core import cluster_collectives as cc
 from repro_torch.core.distill import distillation_loss, softmax_cross_entropy
 from repro_torch.fed.schedule import RoundPlan
 from repro_torch.kernels import ops
-from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.optim import Optimizer, apply_updates, fedprox_penalty
 from repro_torch.tree import tree_map
 
 
@@ -396,3 +398,54 @@ def make_packed_kd_round(t_fwd: Callable, s_fwd: Callable, t_opt: Optimizer,
                 _active_mean(s_loss, s_n))
 
     return kd_round
+
+
+# -------------------------------------------- FedAvg/FedProx packed engine
+def make_packed_baseline_round(fwd: Callable, opt: Optimizer, *,
+                               prox_mu: float = 0.0, lane_dropout=None):
+    """One FedAvg (``prox_mu=0``) or FedProx round over the slot stack:
+
+      1. plain-CE local steps on every participating slot's batches, with
+         FedProx's proximal term ``(mu/2)||w - w_g||^2`` added per lane
+         against the ROUND-START global params (one unstacked dict, shared
+         by every lane and never differentiated), masked like every other
+         step quantity (idle slots never move);
+      2. one all-clients aggregation: the runtime (S,) example-weighted row
+         (``RoundPlan.example_row``) contracted by
+         ``cluster_collectives.packed_weighted_mean``, the stacked form of
+         the loop engine's ``aggregation.fedavg(locals, sizes)``.
+
+    Returns round_fn(p, s, xs, ys, n_steps, rng, agg_row, global_p) ->
+    (p, p_local, s, train_loss), the signature of the JAX program: params
+    and Adam state carry a leading (S,) slot axis, batch stacks are (S,
+    steps, B, ...), ``n_steps`` and ``rng`` are (S,) host budgets and
+    integer seeds, ``p_local`` is each slot's params after its local steps
+    and before aggregation, and ``train_loss`` is a device scalar (the mean
+    over the active slots).  After the call every slot holds the aggregate.
+    ``lane_dropout`` is the model's ``make_lane_dropout`` (None without
+    dropout)."""
+    prox = vmap(lambda q, g: fedprox_penalty(q, g, prox_mu),
+                in_dims=(0, None))
+
+    def baseline_round(p, s, xs, ys, n_steps, rng_seeds, agg_row, global_p):
+        def step(carry, x, y, i):
+            p, s = carry
+            keep = _lane_keep(lane_dropout, rng_seeds, i, x.shape[1],
+                              x.device)
+
+            def loss_fn(pg):
+                loss = vmap(softmax_cross_entropy)(
+                    _lane_forward(fwd, pg, x, train=True, keep=keep), y)
+                if prox_mu:
+                    loss = loss + prox(pg, global_p)
+                return loss
+
+            p, s, loss = _grad_update(opt, p, s, loss_fn)
+            return (p, s), loss
+
+        (p, s), loss = _masked_scan_steps(step, (p, s), xs, ys, n_steps)
+        p_local = p
+        p = cc.packed_weighted_mean(p, _operator(agg_row, xs.device))
+        return p, p_local, s, _active_mean(loss, n_steps)
+
+    return baseline_round

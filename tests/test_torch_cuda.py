@@ -187,10 +187,10 @@ def test_fused_merge_matches_plain(dev, N, D, dtype, decay):
     (7, (torch.float32, torch.bfloat16), 0.5, 0),   # two dtypes: 2 launches
 ], ids=str)
 def test_fused_merge_leaves_matches_plain(dev, N, dtypes, decay, offset):
-    """The ten student leaves from ``chip_smoke._student_rows``; with
+    """The ten student leaves from ``chip_smoke._client_rows``; with
     ``offset`` the odd clients' rows are not 16-byte aligned."""
-    rows, w, s = chip_smoke._student_rows(N, dtypes, N + offset,
-                                          offset=offset, device=dev)
+    rows, w, s = chip_smoke._client_rows(N, dtypes, N + offset,
+                                         offset=offset, device=dev)
     if offset:
         assert any(t.data_ptr() % 16 for t in rows[1])
     reset_launches()
@@ -211,8 +211,8 @@ def test_weighted_average_is_one_launch_on_the_card(dev):
     the student: one kernel launch, each leaf's dtype kept, equal to the
     same merge on the CPU."""
     from repro_torch.core import aggregation as agg
-    rows, w, _ = chip_smoke._student_rows(40, (torch.float32,), 1,
-                                          device=dev)
+    rows, w, _ = chip_smoke._client_rows(40, (torch.float32,), 1,
+                                         device=dev)
     keys = [f"leaf{l}" for l in range(len(rows[0]))]
     params = [dict(zip(keys, r)) for r in rows]
     reset_launches()
@@ -224,6 +224,74 @@ def test_weighted_average_is_one_launch_on_the_card(dev):
         assert got[k].dtype == params[0][k].dtype
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_a_merge_of_one_client_is_its_input(dev):
+    """FL+HC merges a cluster of one member: the N = 1 merge of the
+    teacher's leaves (the baselines' model) on the card gives the client's
+    params back bit for bit (its normalised weight is exactly 1), and a
+    zero weight beside it leaves them so too."""
+    from repro_torch.core import aggregation as agg
+    rows, _, _ = chip_smoke._client_rows(2, (torch.float32,), 2,
+                                         student=False, device=dev)
+    keys = [f"leaf{l}" for l in range(len(rows[0]))]
+    one, other = (dict(zip(keys, r)) for r in rows)
+    reset_launches()
+    for got in (agg.fedavg([one], [37]), agg.fedavg([one, other], [37, 0])):
+        for k in keys:
+            assert torch.equal(got[k], one[k]), k
+    assert fm.fused_merge.variant_launches == {"leaf": 0, "leaves": 2}
+
+
+def test_fedavg_on_the_card_merges_once_a_round(dev, monkeypatch):
+    """A small loop FedAvg run on the card: one ``leaves`` merge launch a
+    round, and metrics within the loop engine's card-vs-CPU bounds (2
+    points of accuracy, 1e-2 relative loss)."""
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.fed.rounds import FedConfig, run_federated
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ds = load_dataset("mnist", small=True)
+    cfg = FedConfig(algorithm="fedavg", num_clients=6, alpha=1.0, rounds=2,
+                    batch_size=32)
+    reset_launches()
+    h = run_federated(ds, cfg, device=dev)
+    assert launch_counts()["fused_merge"] == cfg.rounds
+    assert fm.fused_merge.variant_launches == {"leaf": 0,
+                                               "leaves": cfg.rounds}
+    want = run_federated(ds, cfg, device="cpu")
+    assert np.max(np.abs(np.subtract(h["acc"], want["acc"]))) <= 0.02
+    np.testing.assert_allclose(h["loss"], want["loss"], rtol=1e-2)
+
+
+@pytest.mark.parametrize("algorithm,engine", [("fedprox", "loop"),
+                                              ("fedprox", "sharded"),
+                                              ("flhc", "loop")], ids=str)
+def test_baseline_on_the_card_matches_cpu(dev, monkeypatch, algorithm,
+                                          engine):
+    """A small FedProx (both engines) and FL+HC run on the card against the
+    same run on the CPU: FedProx's proximal term and FL+HC's clustering of
+    updates read back to the host, with the fused merge once a round on the
+    loop engine, once a cluster a round for FL+HC and never on the packed
+    engine; metrics within the card-vs-CPU bounds of the FedAvg test above
+    (2 points of accuracy, 1e-2 relative loss)."""
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.fed.rounds import FedConfig, run_federated
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ds = load_dataset("mnist", small=True)
+    cfg = FedConfig(algorithm=algorithm, engine=engine, num_clients=6,
+                    alpha=1.0, rounds=2, batch_size=32, num_clusters=2,
+                    **({"pack": 6} if engine == "sharded" else {}))
+    reset_launches()
+    h = run_federated(ds, cfg, device=dev)
+    want = run_federated(ds, cfg, device="cpu")
+    merges = {"loop": cfg.rounds, "sharded": 0}[engine]
+    if algorithm == "flhc":
+        assert h["num_clusters"] == want["num_clusters"] == 2
+        merges = cfg.rounds * h["num_clusters"]
+    assert launch_counts()["fused_merge"] == merges
+    assert fm.fused_merge.variant_launches == {"leaf": 0, "leaves": merges}
+    assert np.max(np.abs(np.subtract(h["acc"], want["acc"]))) <= 0.02
+    np.testing.assert_allclose(h["loss"], want["loss"], rtol=1e-2)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -13,8 +13,9 @@ package's, on the CPU.
   a copy), so the runs differ only by float32 rounding: per-round accuracy
   agrees to 1 point and loss to 1e-3 relative.
 - ``run_federated`` refuses a missing CUDA device and every knob the port
-  does not run yet (the packed engine's own are in
-  ``tests/test_torch_sharded.py``).
+  does not run yet, for FedSiKD and for the baselines (the packed engine's
+  own are in ``tests/test_torch_sharded.py``; the baselines' runs are held
+  to JAX in ``tests/test_torch_baselines.py``).
 """
 import jax
 import numpy as np
@@ -189,9 +190,9 @@ def test_run_federated_needs_a_cuda_device():
 
 
 @pytest.mark.parametrize("knob", [
-    {"algorithm": "fedavg"},
-    {"algorithm": "fedprox"},
-    {"algorithm": "flhc", "num_clusters": None},
+    {"algorithm": "fedavg", "async_mode": True},
+    {"algorithm": "fedprox", "ckpt_dir": "ckpt"},
+    {"algorithm": "flhc", "num_clusters": None, "ckpt_dir": "ckpt"},
     {"ckpt_dir": "ckpt"},
     {"ckpt_dir": "ckpt", "resume": True},
     {"async_mode": True},
@@ -202,5 +203,5 @@ def test_run_federated_needs_a_cuda_device():
 ], ids=lambda k: ",".join(k))
 def test_unported_knobs_raise(knob):
     cfg = FedConfig(**{**PARITY, **knob})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         run_federated(load_dataset("mnist", small=True), cfg, device="cpu")
