@@ -12,7 +12,12 @@ on the full MNIST twin, 40 clients, 3 rounds) on the card on both engines
 (the loop engine, then the packed engine with all 40 clients as lanes of
 one stacked program), then the paper's baselines on the same twin (loop
 FedAvg, FedProx and FL+HC, each merge one fused-merge launch, and packed
-FedAvg with all 40 clients as lanes, whose merge is a product), then serves
+FedAvg with all 40 clients as lanes, whose merge is a product), then the
+paper's join-and-share path (phase ``runtime_path``: loop FedSiKD with
+DP-noised statistics, clients joining and leaving, warm re-clustering,
+stragglers merged late and a checkpoint every round, interrupted and
+resumed with a bit-exact restore; loop FedAvg with the same knobs; packed
+FedSiKD with DP noise and checkpoints, interrupted and resumed), then serves
 the full-width, full-depth qwen2.5-3b in bf16 (random weights from a seed):
 a prefill of 2 x 4096 tokens and 32 greedy decode steps through
 ``make_prefill_step`` / ``make_decode_step``, with every attention in a
@@ -21,7 +26,9 @@ decode step on the decode kernel). It checks that each path went through
 its kernels (the loop engine's merge one multi-leaf launch a round, the
 clustering step's 255 k-means calls on the split kernel, every KD launch of
 the fused distill step and the packed engine on the rows kernels, FedAvg's
-and FedProx's merge one launch a round and FL+HC's one a cluster), holds
+and FedProx's merge one launch a round and FL+HC's one a cluster, the
+join-and-share runs' merge one launch a round that merges, late updates at
+s >= 1 among them, and 51 k-means launches a re-clustering), holds
 each packed engine's per-round accuracy and eval loss to its loop engine's
 and a float32 2-layer serve's decode logits to a full forward of the same
 tokens, times every kernel beside its bound, and prints one JSON object per
@@ -430,17 +437,21 @@ def phase_kernel_checks():
                      + (" misaligned rows" if offset else ""),
                      rows, w, s, decay, tol)
     # the baselines' merges: the teacher's ten leaves under example-count
-    # weights, no staleness; N = 40 is loop FedAvg's and FedProx's round,
-    # N = 7 (one client with no examples) and N = 1 are FL+HC clusters
-    for N, seed in ((40, 40), (7, 41), (1, 42)):
+    # weights; N = 40 is loop FedAvg's and FedProx's round, N = 7 (one
+    # client with no examples) and N = 1 are FL+HC clusters, and the last
+    # N = 40 is async FedAvg's (arrivals at staleness 1 or 2, decay 0.5)
+    for N, seed, decay in ((40, 40, 0.0), (7, 41, 0.0), (1, 42, 0.0),
+                           (40, 43, 0.5)):
         rows, _, _ = _client_rows(N, (torch.float32,), seed, student=False)
-        w = (np.random.default_rng(seed).integers(1, 3000, N)
-             .astype(np.float32))
+        r = np.random.default_rng(seed)
+        w = r.integers(1, 3000, N).astype(np.float32)
         if N == 7:
             w[3] = 0.0
+        s = (r.integers(0, 3, N) if decay else np.zeros(N)).astype(np.float32)
         leaves_check(f"fused_merge_leaves N={N} 10 teacher leaves float32, "
-                     f"example counts {w.astype(int).tolist()[:8]}",
-                     rows, w, np.zeros(N, np.float32), 0.0, 1e-5)
+                     f"example counts {w.astype(int).tolist()[:8]}, "
+                     f"staleness {s.astype(int).tolist()[:8]} decay={decay}",
+                     rows, w, s, decay, 1e-5)
     errs["kmeans_assign"] = 0.0
     for N, K, F, seed in [(KM_N, k, KM_F, 7 + k) for k in (2, 3, 4, 5)] + [
             (16384, 8, KM_F, 12), (16384, 16, KM_F, 17),
@@ -782,6 +793,333 @@ def phase_baselines_path(ds, fedsikd_loop_h, fedsikd_packed_h):
     return merges
 
 
+# ----------------------------------------------------------- phase 4b3
+# The paper's join-and-share path: clients join with DP-noised statistics,
+# leave, are re-clustered warm, and straggle (semi-async rounds), with
+# checkpoints every round.  32 clients are on the roster at round 1.
+RUNTIME_KNOBS = dict(dp_noise=0.05, join_schedule=((2, 4), (3, 4)),
+                     leave_rate=0.05, recluster_every=2, async_mode=True,
+                     straggler_frac=0.4, max_staleness=2,
+                     staleness_decay=0.5)
+RUNTIME_ROUNDS = 4
+RUNTIME_CUT = 2                         # the interrupted run stops here
+PACKED_RUNTIME_ROUNDS = 3
+PACKED_RUNTIME_CUT = 2
+# keys the round plans decide: a resumed run repeats them exactly
+PLAN_KEYS = ("participants", "labels_history", "stragglers", "stale_merged",
+             "stale_dropped", "buffered")
+
+
+def _determinism_probe(ds) -> dict:
+    """Which op of the path repeats bit for bit on the card: each is run
+    twice on the same inputs (the full roster's DP-noised statistics, one
+    teacher CE step, one student distill step, warm k-means, one merge of
+    40 students) and compared with ``torch.equal``."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.core import aggregation, kmeans, stats
+    from repro_torch.data.pipeline import make_client_shards
+    from repro_torch.fed.algorithms.clustered_kd import stat_features
+    from repro_torch.fed.client import make_steps
+    from repro_torch.fed.rounds import FedConfig
+    from repro_torch.models.cnn import make_model
+    from repro_torch.optim import adamw
+
+    cfg = FedConfig(dp_noise=RUNTIME_KNOBS["dp_noise"])
+    shards = make_client_shards(ds, cfg.num_clients, cfg.alpha, seed=cfg.seed)
+    out = {}
+    f1, f2 = (stat_features(shards, cfg, device=DEV) for _ in range(2))
+    out["stat_features (batched_moments: index_add_)"] = torch.equal(f1, f2)
+    feats = stats.standardize(f1)
+    (c1, a1, _), (c2, a2, _) = (kmeans.kmeans_warm(feats, feats[:5].clone())
+                                for _ in range(2))
+    out["kmeans_warm"] = torch.equal(c1, c2) and torch.equal(a1, a2)
+    x, y = next(shards[0].batches(cfg.batch_size, seed=cfg.seed))
+    batch = {"x": x, "y": y}
+    t_init, t_fwd = make_model(ds.name, student=False)
+    s_init, s_fwd = make_model(ds.name, student=True)
+    tp = t_init(rng.fold_seed(0), DEV)
+    sp = s_init(rng.fold_seed(1), DEV)
+    opt = adamw(cfg.lr)
+    ce = make_steps(t_fwd, opt)["ce"]
+    distill = make_steps(s_fwd, opt)["make_distill"](t_fwd)
+    for name, run in (
+            ("teacher CE step (cuDNN)",
+             lambda: ce(tp, opt.init(tp), batch, 0)),
+            ("student distill step (cuDNN)",
+             lambda: distill(sp, opt.init(sp), batch, 0, tp))):
+        (p1, _, l1), (p2, _, l2) = run(), run()
+        out[name + ": loss"] = torch.equal(l1, l2)
+        out[name + ": params"] = all(torch.equal(p1[k], p2[k]) for k in p1)
+    students = [s_init(rng.fold_seed(2, i), DEV) for i in range(40)]
+    m1, m2 = (aggregation.weighted_average(students, list(range(1, 41)))
+              for _ in range(2))
+    out["fused merge"] = all(torch.equal(m1[k], m2[k]) for k in m1)
+    return out
+
+
+def _merging_rounds(h) -> int:
+    """Rounds that merged anything: an on-time participant or an arrival."""
+    stragglers = h.get("stragglers") or [0] * len(h["participants"])
+    arrived = h.get("stale_merged") or [0] * len(h["participants"])
+    return sum(1 for p, st, a in zip(h["participants"], stragglers, arrived)
+               if p - st > 0 or a > 0)
+
+
+def _timed(fn, into: list):
+    """``fn`` with its seconds (device work included) appended to ``into``."""
+    def timed(*args, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+    return timed
+
+
+def _runtime_run(ds, cfg, saves=None, events=None):
+    """One run on the card with its launch counts (zeroed just before, read
+    just after); ``saves`` and ``events`` collect the seconds of each
+    checkpoint save and each re-clustering event."""
+    from repro_torch.fed import fedstate
+    from repro_torch.fed.algorithms import clustered_kd
+    from repro_torch.fed.rounds import run_federated
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import launch_counts, reset_launches
+    save_round = fedstate.save_round
+    base = clustered_kd._ClusteredKDBase
+    apply_lifecycle = base.apply_lifecycle
+    if saves is not None:
+        fedstate.save_round = _timed(save_round, saves)
+    if events is not None:
+        base.apply_lifecycle = _timed(apply_lifecycle, events)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        h = run_federated(ds, cfg, device=DEV)
+        total = time.perf_counter() - t0
+        counts = {**launch_counts(),
+                  "fused_merge_variants":
+                  dict(fm.fused_merge.variant_launches),
+                  "fused_merge_stale": fm.fused_merge.stale_launches,
+                  "kmeans_assign_variants":
+                  dict(km.kmeans_assign.variant_launches)}
+    finally:
+        fedstate.save_round = save_round
+        base.apply_lifecycle = apply_lifecycle
+    vals = [v for k in ("acc", "loss", "teacher_loss", "student_loss")
+            for v in h.get(k, []) if v is not None]
+    if not all(math.isfinite(v) for v in vals):
+        raise RuntimeError(f"non-finite metrics: {vals}")
+    return h, total, counts
+
+
+def _restore_checker(ckpt_dir, found):
+    """A wrapper of ``RoundDriver._resume`` that holds the state the run
+    restored (read back from the strategy and the buffer, on the card) to
+    the checkpoint's arrays, bit for bit, and notes the result in
+    ``found``."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.fed import driver, fedstate
+    resume = driver.RoundDriver._resume
+
+    def checked(self, history, fp):
+        rnd = resume(self, history, fp)
+        arrays = self.alg.checkpoint_arrays()
+        if self.buffer is not None:
+            arrays["_async_buffer"] = [convert.params_to_jax(p)
+                                       for p in self.buffer.params_list()]
+        got = ckpt._flatten(arrays)
+        with np.load(fedstate.round_path(ckpt_dir, rnd)) as z:
+            saved = {k: z[k] for k in z.files}
+        bad = sorted(k for k in saved.keys() | got.keys()
+                     if k not in got or k not in saved
+                     or got[k].dtype != saved[k].dtype
+                     or not np.array_equal(got[k], saved[k]))
+        found.update(arrays=len(saved), bad=bad,
+                     buffer=sum(k.startswith("_async_buffer/")
+                                for k in saved))
+        return rnd
+
+    return resume, checked
+
+
+def _resumed_against(ds, cfg, h_full, cut, ckpt_dir):
+    """``cfg`` run to ``cut`` rounds into ``ckpt_dir`` through the
+    background writer (``async_ckpt``: card tensors copied on its thread),
+    then resumed to its end; the restore held to the checkpoint bit for bit
+    and the resumed history's plan keys to ``h_full``'s.  Returns the
+    resumed history and the restore check."""
+    import dataclasses
+    from repro_torch.fed import driver
+    _runtime_run(ds, dataclasses.replace(cfg, rounds=cut, ckpt_dir=ckpt_dir,
+                                         async_ckpt=True))
+    found = {}
+    resume, checked = _restore_checker(ckpt_dir, found)
+    driver.RoundDriver._resume = checked
+    try:
+        h_res, _, _ = _runtime_run(ds, dataclasses.replace(
+            cfg, ckpt_dir=ckpt_dir, resume=True))
+    finally:
+        driver.RoundDriver._resume = resume
+    if not found or found["bad"]:
+        raise RuntimeError(f"restore is not bit-exact: {found}")
+    for key in PLAN_KEYS:
+        if h_res.get(key) != h_full.get(key):
+            raise RuntimeError(f"resumed {key} {h_res.get(key)} differs from "
+                               f"the uninterrupted run's {h_full.get(key)}")
+    return h_res, found
+
+
+def _hold_resumed(name, h_res, h_full, bitwise: bool):
+    """The resumed run's accuracy and eval loss against the uninterrupted
+    run's: equal where two uninterrupted runs agree bit for bit, else
+    within 3 points and LOSS_RTOL_TO_LOOP."""
+    gaps = [abs(a - b) for a, b in zip(h_res["acc"], h_full["acc"])]
+    loss_gaps = [abs(a - b) / abs(b)
+                 for a, b in zip(h_res["loss"], h_full["loss"])]
+    if bitwise:
+        ok = h_res["acc"] == h_full["acc"] and h_res["loss"] == h_full["loss"]
+    else:
+        ok = max(gaps) <= 0.03 and max(loss_gaps) <= LOSS_RTOL_TO_LOOP
+    emit({"check": f"runtime_path: {name} resumed against uninterrupted",
+          "required": "bit-identical" if bitwise else
+          f"3 points, {LOSS_RTOL_TO_LOOP} relative", "acc_gap": gaps,
+          "loss_rel_gap": loss_gaps, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"{name}: resumed acc {h_res['acc']} / loss "
+                           f"{h_res['loss']} against {h_full['acc']} / "
+                           f"{h_full['loss']}")
+
+
+def _check_merges(name, h, counts):
+    """One ``leaves`` merge launch for every round that merged anything,
+    at least one of them merging a late update (s >= 1)."""
+    want = _merging_rounds(h)
+    if counts["fused_merge"] != want or counts["fused_merge_variants"] != {
+            "leaf": 0, "leaves": want}:
+        raise RuntimeError(f"{name}: expected {want} fused-merge launches, "
+                           f"all 'leaves', counted {counts['fused_merge']} "
+                           f"({counts['fused_merge_variants']})")
+    if sum(h["stale_merged"]) < 1 or counts["fused_merge_stale"] < 1:
+        raise RuntimeError(f"{name}: no late update merged (stale_merged "
+                           f"{h['stale_merged']}, stale launches "
+                           f"{counts['fused_merge_stale']})")
+
+
+def phase_runtime_path(ds, loop_h, packed_h):
+    """The join-and-share path on the main path's twin (full MNIST, 40
+    clients, alpha 0.5, batch 64).  Run 1: loop FedSiKD with DP-noised
+    statistics, joins and leaves, warm re-clustering every 2 rounds,
+    stragglers (semi-async) and a checkpoint every round; again as 2 rounds
+    (checkpointed by the background writer) plus a resume to round 4, its
+    restore bit-exact; and a second
+    uninterrupted run, which says whether runs on the card repeat bit for
+    bit.  Run 2: loop FedAvg with the same knobs and no checkpoint.  Run
+    3: packed FedSiKD (pack 40) with DP noise and checkpoints, 2 rounds and
+    a resume to 3 against 3 uninterrupted rounds.  Returns the launches."""
+    import dataclasses
+    import tempfile
+    from repro_torch.fed.rounds import FedConfig
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = FedConfig(algorithm="fedsikd", rounds=RUNTIME_ROUNDS,
+                        ckpt_every=1, ckpt_dir=f"{tmp}/full",
+                        **RUNTIME_KNOBS)
+        saves, event_s = [], []
+        h, total, counts = _runtime_run(ds, cfg, saves, event_s)
+        h_again, _, _ = _runtime_run(ds, dataclasses.replace(
+            cfg, ckpt_dir=f"{tmp}/again"))
+        bitwise = all(h_again[k] == h[k] for k in
+                      ("acc", "loss", "teacher_loss", "student_loss"))
+        h_res, found = _resumed_against(ds, cfg, h, RUNTIME_CUT,
+                                        f"{tmp}/cut")
+        events = sum(1 for r in h["recluster"] if r)
+        n0 = cfg.num_clients - sum(c for _, c in cfg.join_schedule)
+        want_km = expected_kmeans_launches(cfg, n0) + 51 * events
+        emit({"phase": "runtime_path", "run": "fedsikd loop", "config":
+              f"fedsikd loop mnist {cfg.num_clients} clients ({n0} at round "
+              f"1) alpha={cfg.alpha} batch={cfg.batch_size} "
+              f"rounds={cfg.rounds} " + " ".join(
+                  f"{k}={v}" for k, v in RUNTIME_KNOBS.items()),
+              "acc": h["acc"], "loss": h["loss"],
+              "round_seconds": h["round_seconds"],
+              "sync_loop_round_seconds": loop_h["round_seconds"],
+              "checkpoint_save_seconds": saves,
+              "reclustering_seconds": event_s,
+              "seconds_total": total,
+              **{k: h.get(k) for k in PLAN_KEYS},
+              "recluster": h["recluster"],
+              "migrated_teachers": h["migrated_teachers"],
+              "launches": counts, "expected_kmeans_launches": want_km,
+              "reclustering_events": events,
+              "two_runs_bit_identical": bitwise,
+              "again_acc": h_again["acc"], "again_loss": h_again["loss"],
+              "restore": found, "resumed_acc": h_res["acc"],
+              "resumed_loss": h_res["loss"],
+              "resumed_round_seconds": h_res["round_seconds"]})
+        if counts["kmeans_assign"] != want_km:
+            raise RuntimeError(f"fedsikd loop: expected {want_km} "
+                               f"kmeans_assign launches (setup + 51 x "
+                               f"{events} re-clusterings), counted "
+                               f"{counts['kmeans_assign']}")
+        _check_merges("fedsikd loop", h, counts)
+        if not bitwise:
+            emit({"phase": "runtime_path", "run": "determinism probe",
+                  "bit_identical_twice": _determinism_probe(ds)})
+        _hold_resumed("fedsikd loop", h_res, h, bitwise)
+        out["fedsikd loop runtime"] = counts
+
+        cfg2 = FedConfig(algorithm="fedavg", rounds=RUNTIME_ROUNDS,
+                         **RUNTIME_KNOBS)
+        h2, total2, counts2 = _runtime_run(ds, cfg2)
+        emit({"phase": "runtime_path", "run": "fedavg loop", "config":
+              "fedavg loop, the same knobs, no checkpoint",
+              "acc": h2["acc"], "loss": h2["loss"],
+              "round_seconds": h2["round_seconds"], "seconds_total": total2,
+              **{k: h2.get(k) for k in PLAN_KEYS if k in h2},
+              "launches": counts2})
+        _check_merges("fedavg loop", h2, counts2)
+        if counts2["kmeans_assign"]:
+            raise RuntimeError("fedavg loop launched kmeans_assign")
+        out["fedavg loop runtime"] = counts2
+
+        cfg3 = FedConfig(algorithm="fedsikd", engine="sharded",
+                         pack=PACKED_LANES, rounds=PACKED_RUNTIME_ROUNDS,
+                         dp_noise=RUNTIME_KNOBS["dp_noise"],
+                         ckpt_dir=f"{tmp}/packed")
+        h3, total3, counts3 = _runtime_run(ds, cfg3)
+        h3_again, _, _ = _runtime_run(ds, dataclasses.replace(
+            cfg3, ckpt_dir=None))
+        bitwise3 = all(h3_again[k] == h3[k] for k in
+                       ("acc", "loss", "teacher_loss", "student_loss"))
+        h3_res, found3 = _resumed_against(ds, cfg3, h3, PACKED_RUNTIME_CUT,
+                                          f"{tmp}/packed_cut")
+        want_km3 = expected_kmeans_launches(cfg3, cfg3.num_clients)
+        emit({"phase": "runtime_path", "run": "fedsikd packed", "config":
+              f"fedsikd sharded pack={PACKED_LANES} dp_noise="
+              f"{cfg3.dp_noise} rounds={cfg3.rounds}, checkpoints",
+              "acc": h3["acc"], "loss": h3["loss"],
+              "round_seconds": h3["round_seconds"],
+              "sync_packed_round_seconds": packed_h["round_seconds"],
+              "seconds_total": total3, "launches": counts3,
+              "two_runs_bit_identical": bitwise3, "restore": found3,
+              "resumed_acc": h3_res["acc"], "resumed_loss": h3_res["loss"]})
+        if counts3["kmeans_assign"] != want_km3 or counts3["fused_merge"]:
+            raise RuntimeError(f"fedsikd packed: expected {want_km3} "
+                               f"kmeans_assign and 0 fused-merge launches, "
+                               f"counted {counts3}")
+        _hold_resumed("fedsikd packed", h3_res, h3, bitwise3)
+        out["fedsikd packed runtime"] = counts3
+    return out
+
+
 # ----------------------------------------------------------- phase 4c
 def _grow(cache, extra: int):
     """The prefill's (L, B, T, KVH, hd) caches with ``extra`` empty slots
@@ -1114,7 +1452,8 @@ def _fa_timing(shape, seed):
     return out
 
 
-def phase_timing(errs, path_counts, merge_paths, variants, smi):
+def phase_timing(errs, path_counts, merge_paths, kmeans_paths, variants,
+                 smi):
     import torch
     rows_path = PATH_ROWS
     kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
@@ -1180,6 +1519,7 @@ def phase_timing(errs, path_counts, merge_paths, variants, smi):
          "replaces": "src/repro/kernels/kmeans_assign.py:16",
          "shape": f"N={KM_N} F={KM_F} K=5 float32, one call", **km_path,
          "large": {"shape": f"N=16384 F={KM_F} K=8", **km_big},
+         "launches_by_path": kmeans_paths,
          "path": "run_federated packed (clustering step)"},
         {"name": "flash_attention", "route": "cuda",
          "replaces": "src/repro/kernels/flash_attention.py:22",
@@ -1465,6 +1805,7 @@ def main() -> int:
     merge_counts, loop_h = phase_main_path(ds)
     packed_counts, packed_h = phase_packed_path(ds, loop_h)
     baseline_merges = phase_baselines_path(ds, loop_h, packed_h)
+    runtime_counts = phase_runtime_path(ds, loop_h, packed_h)
     lm_counts, lm_variants = phase_lm_serve(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
@@ -1476,6 +1817,11 @@ def main() -> int:
                     ("kd_softmax_kl_bwd", packed_counts),
                     ("kmeans_assign", merge_counts),
                     ("kmeans_assign", packed_counts),
+                    ("fused_merge", runtime_counts["fedsikd loop runtime"]),
+                    ("fused_merge", runtime_counts["fedavg loop runtime"]),
+                    ("kmeans_assign", runtime_counts["fedsikd loop runtime"]),
+                    ("kmeans_assign",
+                     runtime_counts["fedsikd packed runtime"]),
                     ("flash_attention", lm_counts)):
         if c[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")
@@ -1486,8 +1832,17 @@ def main() -> int:
                    "flash_attention": lm_counts["flash_attention"]}
     merge_paths = {"fedsikd loop": merge_counts["fused_merge"],
                    "fedsikd packed": packed_counts["fused_merge"],
-                   **baseline_merges}
-    phase_timing(errs, path_counts, merge_paths, lm_variants, smi)
+                   **baseline_merges,
+                   **{k: c["fused_merge"] for k, c in runtime_counts.items()},
+                   "stale merges (s >= 1)": {
+                       k: c["fused_merge_stale"]
+                       for k, c in runtime_counts.items()}}
+    kmeans_paths = {"fedsikd loop": merge_counts["kmeans_assign"],
+                    "fedsikd packed": packed_counts["kmeans_assign"],
+                    **{k: c["kmeans_assign"]
+                       for k, c in runtime_counts.items()}}
+    phase_timing(errs, path_counts, merge_paths, kmeans_paths, lm_variants,
+                 smi)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

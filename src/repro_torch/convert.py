@@ -43,9 +43,13 @@ def _flatten(tree, prefix=""):
         yield prefix[:-1], np.asarray(tree)
 
 
-def _permute(a: np.ndarray, lead: int, order: tuple) -> np.ndarray:
-    """Permute the axes after the ``lead`` leading (stack) axes."""
-    return a.transpose(*range(lead), *(lead + i for i in order))
+def _permute(a, lead: int, order: tuple):
+    """Permute the axes after the ``lead`` leading (stack) axes (a numpy
+    array, or a tensor as a view)."""
+    axes = (*range(lead), *(lead + i for i in order))
+    if isinstance(a, torch.Tensor):
+        return a.permute(*axes)
+    return a.transpose(*axes)
 
 
 def _to_torch_layout(a: np.ndarray, lead: int = 0) -> np.ndarray:
@@ -56,7 +60,7 @@ def _to_torch_layout(a: np.ndarray, lead: int = 0) -> np.ndarray:
     return a
 
 
-def _to_jax_layout(a: np.ndarray, lead: int = 0) -> np.ndarray:
+def _to_jax_layout(a: torch.Tensor, lead: int = 0) -> torch.Tensor:
     if a.ndim - lead == 4:           # OIHW -> HWIO
         return _permute(a, lead, (2, 3, 1, 0))
     if a.ndim - lead == 3:           # OIW -> WIO
@@ -75,8 +79,10 @@ def params_from_jax(tree, *, device="cpu", stacked: bool = False) -> dict:
 
 
 def params_to_jax(params: dict, *, stacked: bool = False):
-    """The inverse of ``params_from_jax``: a nested dict/list pytree of
-    numpy arrays in the JAX layout."""
+    """The inverse of ``params_from_jax``: a nested dict/list pytree in the
+    JAX layout whose leaves are the tensors where they lie, as permuted
+    views (nothing is copied; ``np.asarray`` or the checkpoint writer reads
+    them to the host)."""
     lead = int(stacked)
     root: dict = {}
     for key, t in params.items():
@@ -84,8 +90,7 @@ def params_to_jax(params: dict, *, stacked: bool = False):
         node = root
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = np.ascontiguousarray(
-            _to_jax_layout(t.detach().cpu().numpy(), lead))
+        node[parts[-1]] = _to_jax_layout(t.detach(), lead)
     return _lists(root)
 
 
@@ -110,13 +115,15 @@ def adam_from_jax(state, *, device="cpu", stacked: bool = False) -> AdamState:
                      .to(device))
 
 
-def adam_to_jax(state: AdamState, *, stacked: bool = False) -> tuple:
-    """The port's ``AdamState`` -> ``(mu, nu, count)`` in the JAX layout
-    (``repro.optim.optimizers.AdamState(*result)`` rebuilds the JAX one)."""
-    count = state.count.detach().cpu().numpy().astype(np.int32)
-    return (params_to_jax(state.mu, stacked=stacked),
-            params_to_jax(state.nu, stacked=stacked),
-            count if stacked else np.int32(count))
+def adam_to_jax(state: AdamState, *, stacked: bool = False) -> AdamState:
+    """The port's ``AdamState`` -> ``(mu, nu, count)`` in the JAX layout, as
+    an ``AdamState`` (a NamedTuple with the JAX one's fields, so
+    ``repro.optim.optimizers.AdamState(*result)`` rebuilds the JAX one and
+    a checkpoint names its leaves ``.mu``, ``.nu``, ``.count`` as JAX's
+    does).  Leaves are tensor views, as in ``params_to_jax``."""
+    return AdamState(params_to_jax(state.mu, stacked=stacked),
+                     params_to_jax(state.nu, stacked=stacked),
+                     state.count.detach())
 
 
 def _bf16_as_f32(a: np.ndarray) -> tuple[np.ndarray, bool]:

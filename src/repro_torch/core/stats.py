@@ -3,12 +3,16 @@ the batched front-end of ``repro.core.stats``.
 
 Each client's per-feature mean, standard deviation and skewness, for every
 roster client at once: the JAX segment sums become ``index_add_`` over the
-row-owner ids.  The DP hook (``privatize_batched``) is not ported yet:
-``FedConfig.dp_noise > 0`` raises in ``run_federated``.
+row-owner ids.  The Gaussian-mechanism DP hook is split in two:
+``dp_noise_draws`` draws each client's standard normals from its own
+generator, and ``privatize_batched`` clips, scales and adds them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch import rng
 
 _EPS = 1e-8
 
@@ -34,6 +38,40 @@ def batched_moments(x, client_ids, num_segments: int):
     std = torch.sqrt(var)
     skew = third / torch.clamp(std, min=_EPS) ** 3
     return mean, std, skew
+
+
+def dp_noise_draws(seed: int, clients, num_features: int, *,
+                   device="cpu") -> torch.Tensor:
+    """(R, 3, F) standard normal draws for the ``clients`` (global ids): row
+    r holds client ``clients[r]``'s noise for its mean, std and skewness,
+    drawn from the generator ``rng.generator(seed, client)`` on the CPU.  A
+    client's draws depend only on (seed, its id), never on the roster it is
+    drawn with, so they are the same at setup and at any later join."""
+    out = torch.empty((len(clients), 3, num_features), dtype=torch.float32)
+    for r, c in enumerate(np.asarray(clients).tolist()):
+        out[r] = torch.randn((3, num_features), dtype=torch.float32,
+                             generator=rng.generator(seed, int(c)))
+    return out.to(device)
+
+
+def privatize_batched(mean, std, skew, *, noise_multiplier: float,
+                      clip: float = 10.0, noise):
+    """Gaussian-mechanism DP on every client's statistics (the paper leaves
+    the exact DP model out of scope): each statistic is clipped to
+    [-clip, clip] and perturbed by ``noise_multiplier * clip`` times its
+    draw in ``noise`` ((R, 3, F), ``dp_noise_draws``).  ``std`` is clamped
+    at >= 0 AFTER noising (post-processing, no privacy cost).  A zero
+    multiplier returns the statistics unchanged."""
+    if noise_multiplier <= 0.0:
+        return mean, std, skew
+    sigma = noise_multiplier * clip
+
+    def noisy(x, n):
+        return torch.clamp(x, -clip, clip) + sigma * n
+
+    return (noisy(mean, noise[:, 0]),
+            torch.clamp(noisy(std, noise[:, 1]), min=0.0),
+            noisy(skew, noise[:, 2]))
 
 
 def standardize_params(features):

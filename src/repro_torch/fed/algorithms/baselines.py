@@ -20,22 +20,30 @@ Both engines stage the same per-client batch sequences, freeze each
 client's carry after the same step budget and aggregate with the same
 example weights, so they agree up to the order of float32 sums.  Random
 streams are integer seeds (``repro_torch.rng``), folded where the JAX code
-folds its keys; only HAR's dropout reads them.  The straggler buffer,
-the client lifecycle and checkpoints are not ported
-(``rounds.unported_knobs`` refuses them).
+folds its keys; only HAR's dropout reads them.
+
+The loop engine also runs the client lifecycle (a roster change rebuilds
+the scheduler over the active clients; there is no cluster structure to
+migrate) and semi-async rounds (stragglers' updates go to the driver's
+buffer under their example counts and merge late with staleness-decayed
+weights).  Both engines checkpoint the JAX package's arrays: the global
+model as ``student`` and the roster's labels.  The packed engine's
+lifecycle and async rounds are not ported (``rounds.unported_knobs``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import convert, rng
 from repro_torch.core import aggregation as agg
 from repro_torch.data.pipeline import ClientStore
 from repro_torch.fed import schedule
 from repro_torch.fed import sharded as sh
-from repro_torch.fed.algorithms.base import Algorithm, local_epochs, tree_copy
+from repro_torch.fed.algorithms.base import (Algorithm, local_epochs,
+                                             staleness_merge, tree_copy)
 from repro_torch.fed.client import evaluate, make_steps
+from repro_torch.fed.driver import AsyncUpdate
 from repro_torch.models.cnn import make_lane_dropout, make_model
 from repro_torch.optim import adamw
 
@@ -52,9 +60,8 @@ class _BaselineBase(Algorithm):
         self.device = torch.device(device)
         self.name = cfg.algorithm
         self.is_prox = cfg.algorithm == "fedprox"
-        self.labels = np.where(self.initial_active(cfg), 0, -1).astype(
-            np.int32)
-        self.scheduler = self._make_scheduler(cfg, self.labels)
+        self.roster_labels = self._roster_labels(self.initial_active(cfg))
+        self.scheduler = self._make_scheduler(cfg, self.roster_labels)
         self.opt = adamw(cfg.lr)
         self.t_init, self.t_fwd = make_model(ds.name, student=False)
         self.steps = make_steps(self.t_fwd, self.opt, prox_mu=cfg.prox_mu)
@@ -67,11 +74,27 @@ class _BaselineBase(Algorithm):
     def _init_params(self) -> dict:
         return self.t_init(rng.fold_seed(self.seed), self.device)
 
+    @staticmethod
+    def _roster_labels(active) -> np.ndarray:
+        """One pseudo-cluster over the CURRENT roster (-1 off the roster)."""
+        return np.where(np.asarray(active), 0, -1).astype(np.int32)
+
+    def apply_lifecycle(self, event):
+        """No cluster structure to migrate: a roster change rebuilds the
+        scheduler over the active clients (a cadence hit changes
+        nothing else)."""
+        self.roster_labels = self._roster_labels(event.active)
+        self.scheduler = self._make_scheduler(self.cfg, self.roster_labels)
+        return {"active_clients": float(event.active.sum())}
+
     def _make_scheduler(self, cfg, labels):
         return schedule.RoundScheduler(
             labels, participation=cfg.participation,
             clients_per_round=self.clamped_clients_per_round(cfg, labels),
-            dropout_rate=cfg.dropout_rate, seed=cfg.seed)
+            dropout_rate=cfg.dropout_rate, seed=cfg.seed,
+            async_mode=cfg.async_mode, round_deadline=cfg.round_deadline,
+            straggler_frac=cfg.straggler_frac,
+            latency_dist=cfg.latency_dist)
 
     def _setup_engine(self):
         pass
@@ -79,6 +102,18 @@ class _BaselineBase(Algorithm):
     def eval(self):
         return evaluate(self.steps["eval"], self.global_params,
                         self._x_test, self._y_test)
+
+    def checkpoint_arrays(self):
+        # the roster rides the checkpoint: a resume past a lifecycle event
+        # rebuilds the scheduler for the roster as of the checkpoint round
+        return {"student": convert.params_to_jax(self.global_params),
+                "labels": torch.as_tensor(self.roster_labels)}
+
+    def restore_arrays(self, arrays):
+        self.global_params = convert.params_from_jax(arrays["student"],
+                                                     device=self.device)
+        self.roster_labels = arrays["labels"].numpy()
+        self.scheduler = self._make_scheduler(self.cfg, self.roster_labels)
 
 
 # ---------------------------------------------------------------- loop engine
@@ -90,6 +125,7 @@ class LoopBaseline(_BaselineBase):
 
     def run_round(self, plan, rnd):
         cfg = self.cfg
+        delay_of = plan.delay_of()
         locals_, sizes = [], []
         for i in (int(i) for i in plan.participants):
             sh_i = self.shards[i]
@@ -103,9 +139,21 @@ class LoopBaseline(_BaselineBase):
             else:
                 p, _, _ = local_epochs(sh_i, p, o, key, cfg,
                                        step_fn=self.steps["ce"])
-            locals_.append(p)
-            sizes.append(sh_i.num_examples)
-        if locals_:
+            d = delay_of[i]
+            if d > 0:              # straggler: update lands d rounds late
+                self.buffer.push(AsyncUpdate(
+                    client=i, birth=rnd, arrival=rnd + d,
+                    weight=float(sh_i.num_examples), params=p))
+            else:
+                locals_.append(p)
+                sizes.append(sh_i.num_examples)
+        if self.arrivals or plan.stragglers.any():
+            # semi-async merge under staleness-decayed example weights
+            if locals_ or self.arrivals:
+                self.global_params = staleness_merge(
+                    locals_, [float(n) for n in sizes], self.arrivals,
+                    cfg.staleness_decay)
+        elif locals_:
             self.global_params = agg.fedavg(locals_, sizes)
         # else: an all-dropout round is a no-op (params unchanged)
         return {}
@@ -125,7 +173,10 @@ class PackedBaseline(_BaselineBase):
             labels, participation=cfg.participation,
             clients_per_round=self.clamped_clients_per_round(cfg, labels),
             pack=cfg.pack, n_devices=cfg.n_devices, waves=cfg.waves,
-            dropout_rate=cfg.dropout_rate, seed=cfg.seed)
+            dropout_rate=cfg.dropout_rate, seed=cfg.seed,
+            async_mode=cfg.async_mode, round_deadline=cfg.round_deadline,
+            straggler_frac=cfg.straggler_frac,
+            latency_dist=cfg.latency_dist)
 
     def _setup_engine(self):
         cfg, store = self.cfg, self.shards

@@ -1,37 +1,58 @@
 """Clustered-KD strategies: FedSiKD (Alg. 1) and the RandomCluster
 ablation on both engines — the port of ``stat_features``,
-``_ClusteredKDBase.setup``/``_rebuild_structures``, ``LoopClusteredKD`` and
-``ShardedClusteredKD`` (one wave, synchronous rounds) of
-``repro.fed.algorithms.clustered_kd``.
+``_ClusteredKDBase``, ``LoopClusteredKD`` and ``ShardedClusteredKD`` (one
+wave, synchronous rounds) of ``repro.fed.algorithms.clustered_kd``.
 
 ``LoopClusteredKD`` is the sequential per-client reference: per round, each
 cluster's teacher trains on its leader's shard (or the sampled cluster
 members', ``teacher_data="cluster"``), then every sampled member distils a
 copy of the global student from its cluster's teacher, and the plan-weighted
-merge of the members' students (one fused-merge kernel launch per parameter
-leaf on CUDA) becomes the new global student.  Random streams are integer
-seeds folded exactly where the JAX code folds its keys
-(``repro_torch.rng``).
+merge of the members' students (one fused-merge kernel launch a round on
+CUDA) becomes the new global student.  Random streams are integer seeds
+folded exactly where the JAX code folds its keys (``repro_torch.rng``).
+
+Runtime features of the loop engine:
+
+- client lifecycle: ``apply_lifecycle`` re-clusters the active roster with
+  ``kmeans_warm`` from the previous centroids, in the feature space
+  standardised once over the initial roster; K stays fixed, and each new
+  cluster takes the teacher (and its Adam state) of the nearest previously
+  occupied centroid.  Two clusters may then share one teacher's tensors,
+  which is safe because every update is functional (``optim``'s
+  ``apply_updates`` makes new tensors; nothing is changed in place);
+- semi-async rounds: a straggler's distilled student goes to the driver's
+  buffer at its birth round, and each round merges the on-time students
+  with the arrivals under staleness-decayed weights in one fused merge;
+  teachers stay synchronous (edge-hosted);
+- DP noise on the shared statistics (``cfg.dp_noise``): each client's
+  draws come from its own generator, (seed + 17, client id).
 
 ``ShardedClusteredKD`` runs the same phases as lanes of one stacked program
 per round (``fed/sharded.py``): per-cluster teacher replicas on every
 participating slot, their sync, the students' distillation steps with the
 fused KD kernels for all lanes at once, and the plan-weighted merge.
+
+Both engines checkpoint the JAX package's arrays: the global student, the
+teachers and their Adam states (a list on the loop engine, ``(K, ...)``
+stacks on the packed one), the current labels and, for FedSiKD, the
+centroids.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import convert, rng
 from repro_torch.core import aggregation as agg
 from repro_torch.core import kmeans, stats
 from repro_torch.data.pipeline import ClientStore
 from repro_torch.fed import schedule
 from repro_torch.fed import sharded as sh
 from repro_torch.fed.algorithms.base import (Algorithm, cluster_epochs,
-                                             local_epochs, tree_copy)
+                                             local_epochs, staleness_merge,
+                                             tree_copy)
 from repro_torch.fed.client import evaluate, make_steps
+from repro_torch.fed.driver import AsyncUpdate
 from repro_torch.models.cnn import make_lane_dropout, make_model
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_map
@@ -39,7 +60,10 @@ from repro_torch.tree import tree_map
 
 def stat_features(shards, cfg, roster=None, *, device="cpu"):
     """Alg. 1 phase 1, batched: the (R, 3F) raw statistics matrix for the
-    ``roster`` clients (None = everyone) in one segment-sum pass."""
+    ``roster`` clients (global ids; None = everyone) in one segment-sum
+    pass, DP-noised when ``cfg.dp_noise > 0``.  A client's noise is drawn
+    from (seed + 17, its global id), so it is the same whenever it joins
+    and however often the server re-clusters."""
     if roster is None:
         roster = np.arange(len(shards))
     roster = np.asarray(roster)
@@ -51,6 +75,11 @@ def stat_features(shards, cfg, roster=None, *, device="cpu"):
     cid = torch.from_numpy(np.repeat(np.arange(len(roster)), sizes)).to(device)
     mean, std, skew = stats.batched_moments(x_cat, cid,
                                             num_segments=len(roster))
+    if cfg.dp_noise > 0:
+        noise = stats.dp_noise_draws(cfg.seed + 17, roster, mean.shape[1],
+                                     device=device)
+        mean, std, skew = stats.privatize_batched(
+            mean, std, skew, noise_multiplier=cfg.dp_noise, noise=noise)
     return torch.cat([mean, std, skew], dim=1)
 
 
@@ -89,6 +118,7 @@ class _ClusteredKDBase(Algorithm):
             base = np.searchsorted(occ, base)
             self.K0 = len(occ)
             self.centroids = None
+            self._base_labels = base
             lab = base[roster]
         labels_full = np.full(cfg.total_clients, -1, np.int64)
         labels_full[roster] = lab
@@ -115,10 +145,65 @@ class _ClusteredKDBase(Algorithm):
             clients_per_round=self.clamped_clients_per_round(cfg, self.labels),
             pack=cfg.pack, n_devices=cfg.n_devices, waves=cfg.waves,
             weighting=cfg.cluster_weighting, dropout_rate=cfg.dropout_rate,
-            seed=cfg.seed)
+            seed=cfg.seed, async_mode=cfg.async_mode,
+            round_deadline=cfg.round_deadline,
+            straggler_frac=cfg.straggler_frac,
+            latency_dist=cfg.latency_dist)
+
+    def apply_lifecycle(self, event):
+        cfg = self.cfg
+        old_labels = self.labels
+        roster = np.flatnonzero(event.active)
+        migrate = np.arange(self.K0)
+        if cfg.algorithm == "fedsikd":
+            raw = stat_features(self.shards, cfg, roster, device=self.device)
+            feats = stats.apply_standardize(raw, self._feat_mu, self._feat_sd)
+            res = kmeans.kmeans_warm(
+                feats, torch.as_tensor(self.centroids, device=self.device))
+            new_cent = res.centroids.cpu().numpy()
+            lab = res.assignments.cpu().numpy().astype(np.int64)
+            # teacher migration: cluster j starts from the teacher of the
+            # nearest previously OCCUPIED centroid (itself, for clusters
+            # that merely drifted)
+            occupied_old = np.unique(old_labels[old_labels >= 0])
+            d = ((new_cent[:, None, :] - self.centroids[None, :, :]) ** 2
+                 ).sum(-1)
+            penalty = np.full(self.K0, np.inf)
+            penalty[occupied_old] = 0.0
+            migrate = np.argmin(d + penalty[None, :], axis=1)
+            self._migrate_teachers(migrate)
+            self.centroids = new_cent
+        else:                          # random baseline: labels are sticky
+            lab = self._base_labels[roster]
+        labels_full = np.full(cfg.num_clients, -1, np.int64)
+        labels_full[roster] = lab
+        both = (old_labels >= 0) & (labels_full >= 0)
+        shift = (float(np.mean(old_labels[both] != labels_full[both]))
+                 if both.any() else 0.0)
+        self._rebuild_structures(labels_full)
+        return {"recluster": 1.0, "cluster_shift": shift,
+                "active_clients": float(event.active.sum()),
+                "migrated_teachers": float(
+                    int((migrate != np.arange(self.K0)).sum()))}
 
     def _setup_engine(self):
         raise NotImplementedError
+
+    def _migrate_teachers(self, migrate: np.ndarray) -> None:
+        raise NotImplementedError
+
+    def _labels_and_centroids(self) -> dict:
+        """The checkpoint's labels (int32) and, for FedSiKD, centroids."""
+        arrs = {"labels": torch.as_tensor(self.labels.astype(np.int32))}
+        if self.centroids is not None:
+            arrs["centroids"] = torch.as_tensor(
+                np.asarray(self.centroids, np.float32))
+        return arrs
+
+    def _restore_labels(self, arrays) -> None:
+        if "centroids" in arrays:
+            self.centroids = arrays["centroids"].numpy()
+        self._rebuild_structures(arrays["labels"].numpy())
 
     def _init_student(self) -> dict:
         return self.s_model[0](rng.fold_seed(self.seed), self.device)
@@ -150,6 +235,14 @@ class LoopClusteredKD(_ClusteredKDBase):
         self._x_test = torch.from_numpy(self.ds.x_test).to(self.device)
         self._y_test = torch.from_numpy(self.ds.y_test).to(self.device)
 
+    def _migrate_teachers(self, migrate):
+        if np.array_equal(migrate, np.arange(self.K0)):
+            return
+        # rows may share one teacher's tensors: safe, as no update is in
+        # place
+        self.teachers = [self.teachers[int(m)] for m in migrate]
+        self.t_opts = [self.t_opts[int(m)] for m in migrate]
+
     def _teacher_shards(self, ci, members=None):
         # "cluster" mode pools the round's SAMPLED members only (None = all,
         # for warm-up); "leader" trains on the leader's own shard
@@ -175,13 +268,16 @@ class LoopClusteredKD(_ClusteredKDBase):
         cfg = self.cfg
         part = set(int(i) for i in plan.participants)
         weight_of = plan.weight_of()
+        delay_of = plan.delay_of()
         new_params, weights, t_losses, s_losses = [], [], [], []
         for ci, members in enumerate(self.clusters):
             sel = [i for i in members if int(i) in part]
             if not sel:
                 continue           # no sampled member: teacher untouched
             t = int(self.cluster_ids[ci])
-            # Alg.1 line 12: the teacher trains on (sampled) cluster data
+            # Alg.1 line 12: the teacher trains on (sampled) cluster data;
+            # teachers are edge-hosted, so they stay synchronous even when a
+            # member's student update straggles
             self.teachers[t], self.t_opts[t], t_loss = cluster_epochs(
                 self._teacher_shards(ci, sel), self.teachers[t],
                 self.t_opts[t], rng.fold_seed(self.seed, rnd * 1000 + ci),
@@ -194,16 +290,29 @@ class LoopClusteredKD(_ClusteredKDBase):
                     self.shards[i], sp, so,
                     rng.fold_seed(self.seed, rnd * 1000 + 500 + int(i)), cfg,
                     step_fn=self.distill_step, extra=(self.teachers[t],))
-                new_params.append(sp)
-                weights.append(weight_of[int(i)])
                 s_losses.append(s_loss)
-        if not new_params:
+                d = delay_of[int(i)]
+                if d > 0:          # straggler: update lands d rounds late
+                    self.buffer.push(AsyncUpdate(
+                        client=int(i), birth=rnd, arrival=rnd + d,
+                        weight=weight_of[int(i)], params=sp))
+                else:
+                    new_params.append(sp)
+                    weights.append(weight_of[int(i)])
+        if self.arrivals or plan.stragglers.any():
+            # semi-async merge: on-time students and buffered arrivals under
+            # the staleness-decayed, renormalised weights
+            if new_params or self.arrivals:
+                self.global_student = staleness_merge(
+                    new_params, weights, self.arrivals, cfg.staleness_decay)
+        elif new_params:
+            # the plan's weights ARE the two-level FedSiKD mean, extended
+            # unbiasedly to the sampled subset (schedule.RoundPlan docstring)
+            self.global_student = agg.weighted_average(new_params, weights)
+        if not s_losses:
             # every invited client dropped out — a no-op round
             return {"teacher_loss": 0.0, "student_loss": 0.0}
-        # the plan's weights ARE the two-level FedSiKD mean, extended
-        # unbiasedly to the sampled subset (schedule.RoundPlan docstring)
-        self.global_student = agg.weighted_average(new_params, weights)
-        # means over the sampled clients, each client counting its cluster
+        # means over the trained clients, each client counting its cluster
         # teacher's loss, as the packed engine's means over its active
         # slots; the round's one host sync of the losses
         t_loss, s_loss = torch.stack([torch.stack(t_losses).mean(),
@@ -213,6 +322,22 @@ class LoopClusteredKD(_ClusteredKDBase):
     def eval(self):
         return evaluate(self.student_steps["eval"], self.global_student,
                         self._x_test, self._y_test)
+
+    def checkpoint_arrays(self):
+        return {"student": convert.params_to_jax(self.global_student),
+                "teachers": [convert.params_to_jax(t) for t in self.teachers],
+                "t_opts": [convert.adam_to_jax(o) for o in self.t_opts],
+                **self._labels_and_centroids()}
+
+    def restore_arrays(self, arrays):
+        dev = self.device
+        self.global_student = convert.params_from_jax(arrays["student"],
+                                                      device=dev)
+        self.teachers = [convert.params_from_jax(t, device=dev)
+                         for t in arrays["teachers"]]
+        self.t_opts = [convert.adam_from_jax(o, device=dev)
+                       for o in arrays["t_opts"]]
+        self._restore_labels(arrays)
 
     def history_extras(self):
         return {**super().history_extras(), "teacher_loss": [],
@@ -421,6 +546,22 @@ class ShardedClusteredKD(_ClusteredKDBase):
     def eval(self):
         return evaluate(self.student_steps["eval"], self.sp_global,
                         self._x_test, self._y_test)
+
+    def checkpoint_arrays(self):
+        return {"student": convert.params_to_jax(self.sp_global),
+                "teachers": convert.params_to_jax(self.tp_k, stacked=True),
+                "t_opts": convert.adam_to_jax(self.ts_k, stacked=True),
+                **self._labels_and_centroids()}
+
+    def restore_arrays(self, arrays):
+        dev = self.device
+        self.sp_global = convert.params_from_jax(arrays["student"], device=dev)
+        self.tp_k = convert.params_from_jax(arrays["teachers"], device=dev,
+                                            stacked=True)
+        self.ts_k = convert.adam_from_jax(arrays["t_opts"], device=dev,
+                                          stacked=True)
+        self._restore_labels(arrays)
+        self._restage_teacher_feed()
 
     def history_extras(self):
         return {"num_clusters": self.K, "pack": self.scheduler.pack,

@@ -12,15 +12,17 @@ them with ``aggregation.fedavg``: one fused-merge launch a cluster with a
 surviving member, K launches a full round on the card.  Eval is the
 client-example-weighted mean of the cluster models' accuracy and loss.
 
-``FedConfig`` refuses the client lifecycle and ``async_mode`` for FL+HC;
-checkpoints are not ported (``rounds.unported_knobs``).
+``FedConfig`` refuses the client lifecycle and ``async_mode`` for FL+HC.
+Checkpoints hold the cluster models (``cluster_models``, the JAX layout);
+a resumed run re-runs the deterministic pre-round in ``setup`` (its labels
+are checked against the fingerprint's) and then takes the restored models.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import convert, rng
 from repro_torch.core import aggregation as agg
 from repro_torch.core import hierarchical
 from repro_torch.fed import schedule
@@ -102,6 +104,14 @@ class FLHC(Algorithm):
             losses.append(l * w)
             ws.append(w)
         return sum(accs) / sum(ws), sum(losses) / sum(ws)
+
+    def checkpoint_arrays(self):
+        return {"cluster_models": [convert.params_to_jax(m)
+                                   for m in self.cluster_models]}
+
+    def restore_arrays(self, arrays):
+        self.cluster_models = [convert.params_from_jax(m, device=self.device)
+                               for m in arrays["cluster_models"]]
 
     def history_extras(self):
         return {"num_clusters": len(self.clusters)}

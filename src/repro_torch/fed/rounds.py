@@ -6,9 +6,13 @@ The port runs every algorithm on the loop engine and, one wave of
 synchronous rounds, every algorithm but FL+HC on the packed engine
 (``engine="sharded"``): the clustered-KD algorithms (``fedsikd`` and the
 ``random`` ablation) and the baselines (``fedavg``, ``fedprox``; FL+HC is
-loop-only, as in JAX).  Every knob it does not port raises
-``NotImplementedError`` naming its ROADMAP.md item, before any work starts
-(``unported_knobs``).
+loop-only, as in JAX).  On the loop engine it runs the runtime knobs too:
+DP-noised statistics (``dp_noise``), the client lifecycle
+(``join_schedule``, ``leave_rate``, ``recluster_every``), semi-async
+rounds (``async_mode``) and checkpoints (``ckpt_dir``, ``resume``,
+``async_ckpt``); on the packed engine ``dp_noise`` and checkpoints.  Every
+knob it does not port raises ``NotImplementedError`` naming its ROADMAP.md
+item, before any work starts (``unported_knobs``).
 """
 from __future__ import annotations
 
@@ -343,7 +347,8 @@ class FedConfig:
 
 def unported_knobs(cfg: FedConfig) -> list[str]:
     """The knobs of ``cfg`` this slice of the port does not run yet, each
-    with the ROADMAP.md Queue 1 item that ports it."""
+    with the ROADMAP.md Queue 1 item that ports it: the packed engine's
+    waves, universe, guards, async rounds and client lifecycle."""
     out = []
     if cfg.engine == "sharded":
         if cfg.universe is not None:
@@ -358,16 +363,13 @@ def unported_knobs(cfg: FedConfig) -> list[str]:
         if cfg.guards:
             out.append("guards (runtime guards on the packed engine: "
                        "ROADMAP Queue 1 item 9)")
-    if cfg.ckpt_dir is not None or cfg.resume:
-        out.append("ckpt_dir/resume (checkpoints: ROADMAP Queue 1 item 9)")
-    if cfg.async_mode:
-        out.append("async_mode (semi-async rounds: ROADMAP Queue 1 item 9)")
-    if cfg.lifecycle_enabled:
-        out.append("join_schedule/leave_rate/recluster_every (client "
-                   "lifecycle: ROADMAP Queue 1 item 9)")
-    if cfg.dp_noise > 0:
-        out.append("dp_noise > 0 (DP noise on client statistics: ROADMAP "
-                   "Queue 1 item 9)")
+        if cfg.async_mode:
+            out.append("async_mode on the packed engine (semi-async packed "
+                       "rounds: ROADMAP Queue 1 item 9)")
+        if cfg.lifecycle_enabled:
+            out.append("join_schedule/leave_rate/recluster_every on the "
+                       "packed engine (packed client lifecycle: ROADMAP "
+                       "Queue 1 item 9)")
     return out
 
 

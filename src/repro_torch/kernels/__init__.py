@@ -9,7 +9,8 @@ Each also counts them by kind (``variant_launches``):
 ``leaves``: every leaf of N clients' parameters in one launch),
 ``kmeans_assign`` by regime (``split``, ``stream``) and the KD forward and
 backward (``kd_loss_fwd``, ``kd_loss_bwd``) by regime (``rows``,
-``stream``); ``reset_launches`` zeroes those too.
+``stream``); ``reset_launches`` zeroes those too, and
+``fused_merge.stale_launches`` (its launches that merge a late update).
 """
 from repro_torch.kernels import (flash_attention, fused_merge, kd_softmax_kl,
                                  kmeans_assign, ops, ref)
@@ -31,6 +32,7 @@ def reset_launches() -> None:
                kd_softmax_kl.kd_loss_bwd):
         for kind in fn.variant_launches:
             fn.variant_launches[kind] = 0
+    fused_merge.fused_merge.stale_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -23,7 +23,9 @@ warps' sums are added in a fixed order (see the ``.cu`` note).
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor goes
 to the kernel, or the wrapper raises.  ``fused_merge.launches`` counts
 kernel launches of both entries; ``fused_merge.variant_launches`` counts
-them by entry (``leaf``, ``leaves``).
+them by entry (``leaf``, ``leaves``), and ``fused_merge.stale_launches``
+the ``leaves`` launches whose staleness has an s >= 1 (a semi-async
+round's merge of a late update).
 """
 from __future__ import annotations
 
@@ -88,14 +90,14 @@ def merge_plan(sizes: Sequence[int], elt: int, aligned: Sequence[bool]):
 
 
 def _launch(table: np.ndarray, sizes, dtype, device, decay: float, kind: str,
-            *, w=None, s=None, ws=None):
+            *, w=None, s=None, ws=None, stale: bool = False):
     """One kernel launch over the (L, N) row-pointer ``table`` of leaves of
     ``sizes`` columns.  ``w`` and ``s`` are (N,) float32 device tensors, or
     ``ws`` a (2, N) float32 host array uploaded with the tables.  The
     tables go up in one non-blocking copy from pinned memory on the current
     stream (the caching host allocator keeps the pinned block until that
-    copy has run).  Returns the flat float32 output and the leaves'
-    offsets in it."""
+    copy has run).  ``stale`` says the staleness has an s >= 1.  Returns
+    the flat float32 output and the leaves' offsets in it."""
     N = table.shape[1]
     tiles, offsets, total = _merge_plan(
         tuple(sizes), dtype.itemsize, tuple((table % 16 == 0).all(1).tolist()))
@@ -121,6 +123,7 @@ def _launch(table: np.ndarray, sizes, dtype, device, decay: float, kind: str,
     _build.check(err, f"fused_merge ({kind})")
     fused_merge.launches += 1
     fused_merge.variant_launches[kind] += 1
+    fused_merge.stale_launches += int(stale)
     return out, offsets
 
 
@@ -211,13 +214,14 @@ def fused_merge_leaves(rows: Sequence[Sequence[torch.Tensor]], w, s=None, *,
                              "must be contiguous")
         by_dtype.setdefault(t0.dtype, []).append(l)
     ws = np.stack([w, s])
+    stale = bool((s >= 1).any())
     merged: list[torch.Tensor | None] = [None] * L
     for dtype, leaves in by_dtype.items():
         table = np.array([[t.data_ptr() for t in cols[l]] for l in leaves],
                          dtype=np.int64)
         sizes = [first[l].numel() for l in leaves]
         out, offsets = _launch(table, sizes, dtype, device, decay, "leaves",
-                               ws=ws)
+                               ws=ws, stale=stale)
         for l, off, D in zip(leaves, offsets, sizes):
             merged[l] = out[off:off + D].view(first[l].shape)
     return merged
@@ -225,3 +229,4 @@ def fused_merge_leaves(rows: Sequence[Sequence[torch.Tensor]], w, s=None, *,
 
 fused_merge.launches = 0
 fused_merge.variant_launches = dict.fromkeys(VARIANTS, 0)
+fused_merge.stale_launches = 0

@@ -16,6 +16,9 @@ on the CPU (the fused merge's plain version; JAX's jnp merge).
 - ``hierarchical.agglomerative`` against the JAX copy: equal labels.  A
   whole FL+HC run against JAX from the same initial params: equal cluster
   labels, accuracy within 1 point, loss within 1e-3 relative.
+- The runtime knobs the baselines run on the loop engine (resume from a
+  JAX checkpoint, the client lifecycle, DP noise) against JAX's runs, and
+  the packed engine's refusals of the rest.
 """
 import jax
 import jax.numpy as jnp
@@ -43,6 +46,7 @@ from repro_torch.fed.algorithms import baselines
 from repro_torch.fed.algorithms import flhc as port_flhc
 from repro_torch.fed.rounds import FedConfig, run_federated
 from repro_torch.optim import adamw
+from test_torch_runtime import run_both
 
 torch.set_num_threads(1)
 
@@ -298,10 +302,6 @@ def test_flhc_run_matches_jax(monkeypatch):
     {"algorithm": "fedavg", "engine": "sharded", "guards": True},
     {"algorithm": "fedprox", "engine": "sharded", "async_mode": True},
     {"algorithm": "fedavg", "engine": "sharded", "leave_rate": 0.1},
-    {"algorithm": "fedprox", "resume": True, "ckpt_dir": "ckpt"},
-    {"algorithm": "fedavg", "join_schedule": ((2, 1),)},
-    {"algorithm": "fedprox", "dp_noise": 0.5},
-    {"algorithm": "flhc", "dp_noise": 0.5},
 ], ids=lambda k: ",".join(f"{a}={b}" for a, b in k.items()))
 def test_baseline_unported_knobs_raise(knob):
     """What the port does not run for the baselines raises before any work,
@@ -309,6 +309,20 @@ def test_baseline_unported_knobs_raise(knob):
     cfg = FedConfig(**{**RUN, **knob})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         run_federated(load_dataset("mnist", small=True), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    {"algorithm": "fedprox", "resume": True, "ckpt_dir": "ckpt"},
+    {"algorithm": "fedavg", "join_schedule": ((2, 1),)},
+    {"algorithm": "fedprox", "dp_noise": 0.5},
+    {"algorithm": "flhc", "dp_noise": 0.5},
+], ids=lambda k: ",".join(f"{a}={b}" for a, b in k.items()))
+def test_baseline_runtime_knob_matches_jax(knob, monkeypatch, tmp_path):
+    """The baselines' runtime knobs on the loop engine run and match the
+    JAX package's runs (``test_torch_runtime.run_both``; ``resume`` takes
+    the JAX run's checkpoint).  FL+HC shares no statistics, so its
+    ``dp_noise`` changes nothing, in both packages."""
+    run_both({**RUN, "num_clusters": 3, **knob}, monkeypatch, tmp_path)
 
 
 def test_flhc_refuses_async_mode_at_construction():

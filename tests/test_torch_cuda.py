@@ -294,6 +294,70 @@ def test_baseline_on_the_card_matches_cpu(dev, monkeypatch, algorithm,
     np.testing.assert_allclose(h["loss"], want["loss"], rtol=1e-2)
 
 
+@pytest.mark.parametrize("algorithm,knobs", [
+    ("fedavg", dict(async_mode=True, straggler_frac=0.5, max_staleness=1,
+                    rounds=3)),
+    ("fedsikd", dict(join_schedule=((2, 2),), leave_rate=0.15,
+                     recluster_every=1, rounds=2)),
+], ids=["fedavg-async", "fedsikd-lifecycle"])
+def test_runtime_run_on_the_card_matches_cpu(dev, monkeypatch, algorithm,
+                                             knobs):
+    """Loop FedAvg with stragglers and loop FedSiKD with joins, leaves and
+    re-clustering on the card against the same runs on the CPU: the plan's
+    keys (participants, labels, the buffer's counts) equal, metrics within
+    the card-vs-CPU bounds of the baseline tests above (2 points of
+    accuracy, 1e-2 relative loss).  Every merge is one ``leaves`` launch a
+    round, and each re-clustering 51 ``kmeans_assign`` launches beside the
+    setup's 51; the async run merges at least one late update (s >= 1)."""
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.fed.rounds import FedConfig, run_federated
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ds = load_dataset("mnist", small=True)
+    cfg = FedConfig(algorithm=algorithm, num_clients=6, alpha=1.0,
+                    batch_size=32, num_clusters=2, teacher_warmup_epochs=1,
+                    **knobs)
+    reset_launches()
+    h = run_federated(ds, cfg, device=dev)
+    counts, stale = launch_counts(), fm.fused_merge.stale_launches
+    want = run_federated(ds, cfg, device="cpu")
+    for key in ("participants", "labels_history", "recluster",
+                "stragglers", "stale_merged", "stale_dropped", "buffered"):
+        assert h.get(key) == want.get(key), key
+    assert counts["fused_merge"] == fm.fused_merge.variant_launches[
+        "leaves"] == cfg.rounds
+    if algorithm == "fedsikd":
+        assert counts["kmeans_assign"] == 51 * (1 + sum(h["recluster"]))
+    else:
+        assert sum(h["stale_merged"]) >= 1 and stale >= 1
+    assert np.max(np.abs(np.subtract(h["acc"], want["acc"]))) <= 0.02
+    np.testing.assert_allclose(h["loss"], want["loss"], rtol=1e-2)
+
+
+def test_checkpoint_of_card_tensors_is_bit_exact(dev, tmp_path):
+    """A checkpoint of CUDA tensors (float32, bfloat16, int32, an Adam
+    state) restores bit for bit, and back onto the card."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.optim import adamw
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = {"w": torch.randn(33, 7, device=dev, generator=g),
+         "b": torch.randn(7, device=dev, generator=g)}
+    tree = {"p": p, "bf": torch.randn(5, 9, device=dev,
+                                      generator=g).to(torch.bfloat16),
+            "opt": adamw(1e-3).init(p),
+            "labels": torch.arange(6, dtype=torch.int32, device=dev)}
+    ckpt.save(tmp_path / "c", tree)
+    back = ckpt.restore(tmp_path / "c", tree)
+    pairs = [(back["p"]["w"], p["w"]), (back["p"]["b"], p["b"]),
+             (back["bf"], tree["bf"]), (back["labels"], tree["labels"]),
+             (back["opt"].count, tree["opt"].count),
+             (back["opt"].mu["w"], tree["opt"].mu["w"])]
+    for got, want in pairs:
+        assert got.device.type == "cpu" and got.dtype == want.dtype
+        assert torch.equal(got.to(dev), want)
+    assert torch.equal(back["bf"].to(dev).view(torch.int16),
+                       tree["bf"].view(torch.int16))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.ones((4, 6), device=dev)
     w = torch.ones(4, device=dev)

@@ -12,10 +12,12 @@ package's, on the CPU.
   here, in the test.  The batch order is shared (``ClientShard.batches`` is
   a copy), so the runs differ only by float32 rounding: per-round accuracy
   agrees to 1 point and loss to 1e-3 relative.
-- ``run_federated`` refuses a missing CUDA device and every knob the port
-  does not run yet, for FedSiKD and for the baselines (the packed engine's
-  own are in ``tests/test_torch_sharded.py``; the baselines' runs are held
-  to JAX in ``tests/test_torch_baselines.py``).
+- ``run_federated`` refuses a missing CUDA device.  Each runtime knob of
+  the loop engine (async rounds, the client lifecycle, DP noise,
+  checkpoints and resume) runs and matches the JAX package's run
+  (``tests/test_torch_runtime.py``); the knobs the packed engine still
+  refuses are in ``tests/test_torch_sharded.py`` and
+  ``tests/test_torch_baselines.py``.
 """
 import jax
 import numpy as np
@@ -37,6 +39,7 @@ from repro_torch.fed.client import make_steps
 from repro_torch.fed.rounds import FedConfig, run_federated
 from repro_torch.models.cnn import make_model
 from repro_torch.optim import adamw
+from test_torch_runtime import run_both
 
 torch.set_num_threads(1)
 
@@ -190,18 +193,21 @@ def test_run_federated_needs_a_cuda_device():
 
 
 @pytest.mark.parametrize("knob", [
-    {"algorithm": "fedavg", "async_mode": True},
+    {"algorithm": "fedavg", "async_mode": True, "straggler_frac": 0.5},
     {"algorithm": "fedprox", "ckpt_dir": "ckpt"},
     {"algorithm": "flhc", "num_clusters": None, "ckpt_dir": "ckpt"},
     {"ckpt_dir": "ckpt"},
     {"ckpt_dir": "ckpt", "resume": True},
-    {"async_mode": True},
+    {"async_mode": True, "straggler_frac": 0.5},
     {"join_schedule": ((2, 1),)},
     {"leave_rate": 0.1},
     {"recluster_every": 1},
     {"dp_noise": 0.5},
 ], ids=lambda k: ",".join(k))
-def test_unported_knobs_raise(knob):
-    cfg = FedConfig(**{**PARITY, **knob})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        run_federated(load_dataset("mnist", small=True), cfg, device="cpu")
+def test_runtime_knob_matches_jax(knob, monkeypatch, tmp_path):
+    """Each runtime knob of the loop engine runs, and its run matches the
+    JAX package's (``test_torch_runtime.run_both``: equal plans, labels
+    and buffer counts, accuracy within 1 point, loss within 1e-3; with
+    ``ckpt_dir`` the same checkpoint keys, and with ``resume`` the JAX
+    run's checkpoint resumed in the port)."""
+    run_both({**PARITY, **knob}, monkeypatch, tmp_path)

@@ -19,7 +19,8 @@ Pallas interpret mode).
   accuracy within 1 point each round, losses within 1e-4 relative.
 - ``pack`` changes no result; a HAR run learns; the stager adopts a
   matching prefetch and never a mispredicted one; the knobs the packed
-  engine does not port raise naming their ROADMAP item.
+  engine does not port raise naming their ROADMAP item, and its
+  checkpoints match the JAX package's.
 """
 import dataclasses
 
@@ -49,6 +50,7 @@ from repro_torch.fed.rounds import FedConfig, run_federated
 from repro_torch.fed.schedule import RoundScheduler
 from repro_torch.kernels import ops
 from repro_torch.optim import AdamState, adamw
+from test_torch_runtime import run_both
 
 torch.set_num_threads(1)
 
@@ -442,12 +444,24 @@ def test_wave_stager_adopts_a_matching_prefetch_only(monkeypatch):
     {"guards": True},
     {"async_mode": True},
     {"join_schedule": ((2, 1),)},
-    {"ckpt_dir": "ckpt"},
 ], ids=lambda k: ",".join(k))
 def test_packed_unported_knobs_raise(knob):
     cfg = FedConfig(**{**PARITY, "pack": 1, **knob})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         run_federated(load_dataset("mnist", small=True), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    {"ckpt_dir": "ckpt"},
+    {"dp_noise": 0.05},
+], ids=lambda k: ",".join(k))
+def test_packed_runtime_knob_matches_jax(knob, monkeypatch, tmp_path):
+    """The runtime knobs the packed engine runs, against JAX's run
+    (``test_torch_runtime.run_both``): checkpoints write the JAX package's
+    keys, shapes and dtypes (the (K, ...) teacher stacks and their Adam
+    states); ``dp_noise`` clusters on DP-noised statistics, given JAX's
+    draws."""
+    run_both({**PARITY, **knob}, monkeypatch, tmp_path)
 
 
 def test_convert_stacked_round_trip():
