@@ -17,7 +17,13 @@ paper's join-and-share path (phase ``runtime_path``: loop FedSiKD with
 DP-noised statistics, clients joining and leaving, warm re-clustering,
 stragglers merged late and a checkpoint every round, interrupted and
 resumed with a bit-exact restore; loop FedAvg with the same knobs; packed
-FedSiKD with DP noise and checkpoints, interrupted and resumed), then serves
+FedSiKD with DP noise and checkpoints, interrupted and resumed), then the
+packed engine at cross-device scale (phase ``scale_path``: packed FedSiKD
+over a virtual universe of 100,000 clients, cohorts of 120 streamed through
+40 slots in 3 waves under the runtime guards, against a universe of 1,000
+and against the cohort in one wave; packed FedSiKD on the join-and-share
+knobs against its loop run, interrupted and resumed; packed FedAvg in 2
+waves with stragglers against loop FedAvg), then serves
 the full-width, full-depth qwen2.5-3b in bf16 (random weights from a seed):
 a prefill of 2 x 4096 tokens and 32 greedy decode steps through
 ``make_prefill_step`` / ``make_decode_step``, with every attention in a
@@ -28,7 +34,9 @@ clustering step's 255 k-means calls on the split kernel, every KD launch of
 the fused distill step and the packed engine on the rows kernels, FedAvg's
 and FedProx's merge one launch a round and FL+HC's one a cluster, the
 join-and-share runs' merge one launch a round that merges, late updates at
-s >= 1 among them, and 51 k-means launches a re-clustering), holds
+s >= 1 among them, and 51 k-means launches a re-clustering; the scale
+runs' KD launches one a step of each wave's longest budget and their merges
+one a round that merges arrivals alone), holds
 each packed engine's per-round accuracy and eval loss to its loop engine's
 and a float32 2-layer serve's decode logits to a full forward of the same
 tokens, times every kernel beside its bound, and prints one JSON object per
@@ -1022,7 +1030,8 @@ def phase_runtime_path(ds, loop_h, packed_h):
     uninterrupted run, which says whether runs on the card repeat bit for
     bit.  Run 2: loop FedAvg with the same knobs and no checkpoint.  Run
     3: packed FedSiKD (pack 40) with DP noise and checkpoints, 2 rounds and
-    a resume to 3 against 3 uninterrupted rounds.  Returns the launches."""
+    a resume to 3 against 3 uninterrupted rounds.  Returns the launches and
+    the loop runs' histories."""
     import dataclasses
     import tempfile
     from repro_torch.fed.rounds import FedConfig
@@ -1117,6 +1126,252 @@ def phase_runtime_path(ds, loop_h, packed_h):
                                f"counted {counts3}")
         _hold_resumed("fedsikd packed", h3_res, h3, bitwise3)
         out["fedsikd packed runtime"] = counts3
+    return out, {"fedsikd loop": h, "fedavg loop": h2}
+
+
+# ----------------------------------------------------------- phase 4b3
+SCALE_ROUNDS = 4
+SCALE_UNIVERSE = 100_000
+SCALE_COHORT = 120
+SCALE = dict(algorithm="fedsikd", engine="sharded", rounds=SCALE_ROUNDS,
+             participation="stratified", clients_per_round=SCALE_COHORT,
+             pack=PACKED_LANES, n_devices=1, teacher_data="leader")
+SCALE_FEDAVG = dict(algorithm="fedavg", rounds=SCALE_ROUNDS,
+                    participation="stratified", clients_per_round=32,
+                    dropout_rate=0.2, async_mode=True, straggler_frac=0.4,
+                    max_staleness=2)
+ASYNC_KEYS = ("participants", "stragglers", "stale_merged", "stale_dropped")
+
+
+def _arrivals_only_rounds(h) -> int:
+    """Rounds with arrivals and no on-time lane: the packed engine merges
+    those (and only those) in one fused-merge launch."""
+    stragglers = h.get("stragglers") or [0] * len(h["participants"])
+    arrived = h.get("stale_merged") or [0] * len(h["participants"])
+    return sum(1 for p, st, a in zip(h["participants"], stragglers, arrived)
+               if p - st == 0 and a > 0)
+
+
+def _scale_run(ds, cfg):
+    """``_runtime_run`` with the ``perf`` spans on and the KD launches the
+    run's plans call for: each wave's longest student budget, summed over
+    rounds and waves (read from the plans the strategy is handed)."""
+    import numpy as np
+    from repro_torch import perf
+    from repro_torch.fed.algorithms import clustered_kd
+    from repro_torch.kernels import kd_softmax_kl as kd
+    cls = clustered_kd.ShardedClusteredKD
+    run_round = cls.run_round
+    want = {"kd": 0, "waves": 0}
+
+    def counted(self, plan, rnd):
+        for w in range(plan.n_waves):
+            wp = plan.wave(w)
+            if wp.active.any():
+                want["kd"] += int(np.max(wp.steps_for(self.s_steps_all)))
+                want["waves"] += 1
+        return run_round(self, plan, rnd)
+
+    cls.run_round = counted
+    perf.enable()
+    try:
+        h, total, counts = _runtime_run(ds, cfg)
+        buckets = perf.snapshot()
+    finally:
+        cls.run_round = run_round
+        perf.disable()
+    counts["kd_variants"] = {"fwd": dict(kd.kd_loss_fwd.variant_launches),
+                             "bwd": dict(kd.kd_loss_bwd.variant_launches)}
+    keys = ("stage", "compute", "aggregate", "stage_hidden", "stage_wait",
+            "round_total", "eval", "checkpoint")
+    breakdown = {k: [b.get(k, 0.0) for b in buckets] for k in keys}
+    return h, total, counts, want, breakdown
+
+
+def _steady(h) -> float:
+    """Mean seconds a round over rounds 2 to the end."""
+    return statistics.fmean(h["round_seconds"][1:])
+
+
+def _gaps(h, ref):
+    return ([abs(a - b) for a, b in zip(h["acc"], ref["acc"])],
+            [abs(a - b) / abs(b) for a, b in zip(h["loss"], ref["loss"])])
+
+
+def _hold(name, h, ref, acc_tol, loss_tol, keys=()):
+    """``h``'s accuracy and eval loss within ``acc_tol`` / ``loss_tol``
+    relative of ``ref``'s each round, and the plan keys equal."""
+    gaps, loss_gaps = _gaps(h, ref)
+    if max(gaps) > acc_tol or max(loss_gaps) > loss_tol:
+        raise RuntimeError(f"{name}: acc {h['acc']} / loss {h['loss']} "
+                           f"against {ref['acc']} / {ref['loss']} (bounds "
+                           f"{acc_tol}, {loss_tol} relative)")
+    for key in keys:
+        if h.get(key) != ref.get(key):
+            raise RuntimeError(f"{name}: {key} {h.get(key)} differs from "
+                               f"{ref.get(key)}")
+    return gaps, loss_gaps
+
+
+def _check_scale_launches(name, cfg, counts, want, n_clients, events=0,
+                          merges=0):
+    """Exact launches: every KD launch on the rows kernels, as many as the
+    waves' longest student budgets; 255 + 51 x re-clusterings
+    ``kmeans_assign``; ``merges`` fused merges, all ``leaves``."""
+    want_km = expected_kmeans_launches(cfg, n_clients) + 51 * events
+    rows = {"rows": want["kd"], "stream": 0}
+    if counts["kd_variants"] != {"fwd": rows, "bwd": rows}:
+        raise RuntimeError(f"{name}: expected {want['kd']} KD forward and "
+                           f"backward launches, all rows, counted "
+                           f"{counts['kd_variants']}")
+    if counts["kmeans_assign"] != want_km:
+        raise RuntimeError(f"{name}: expected {want_km} kmeans_assign "
+                           f"launches, counted {counts['kmeans_assign']}")
+    if counts["fused_merge"] != merges or counts["fused_merge_variants"] != {
+            "leaf": 0, "leaves": merges}:
+        raise RuntimeError(f"{name}: expected {merges} fused-merge launches, "
+                           f"all 'leaves', counted "
+                           f"{counts['fused_merge_variants']}")
+    return want_km
+
+
+def phase_scale_path(ds, runtime_h):
+    """The packed engine at cross-device scale on the main path's twin
+    (full MNIST, 40 base clients, alpha 0.5, batch 64, 3 warm-up epochs).
+    Run 1: packed FedSiKD over a virtual universe of 100,000 clients,
+    stratified cohorts of 120 streamed through 40 slots in 3 waves, under
+    the guards; run 2 the same over a universe of 1,000; run 3 the cohort
+    in one wave of 120 slots, to which run 1 is held.  Run 4: packed
+    FedSiKD with the join-and-share knobs of ``runtime_path``, held to its
+    loop run, interrupted and resumed.  Run 5: packed FedAvg in 2 waves of
+    16 with sampling, dropout and stragglers under the guards, held to loop
+    FedAvg with the same knobs.  Each run's launches are counted exactly.
+    Returns the launches by run."""
+    import dataclasses
+    import tempfile
+    from repro_torch.fed.rounds import FedConfig
+
+    out = {}
+    base = FedConfig()
+    n_base = base.num_clients
+    runs = {}
+    for name, kw in (
+            ("universe 100000", dict(universe=SCALE_UNIVERSE, guards=True)),
+            ("universe 1000", dict(universe=1_000, guards=True)),
+            ("one wave", dict(universe=SCALE_UNIVERSE, pack=SCALE_COHORT,
+                              n_devices=None))):
+        cfg = FedConfig(**{**SCALE, **kw})
+        h, total, counts, want, breakdown = _scale_run(ds, cfg)
+        want_km = _check_scale_launches(name, cfg, counts, want, n_base)
+        runs[name] = h
+        out[f"fedsikd packed {name}"] = counts
+        emit({"phase": "scale_path", "run": f"fedsikd packed {name}",
+              "config": f"fedsikd sharded mnist {n_base} base clients "
+              f"alpha={cfg.alpha} universe={cfg.universe} stratified "
+              f"cohort={cfg.clients_per_round} pack={cfg.pack} "
+              f"n_devices={cfg.n_devices} guards={cfg.guards} "
+              f"rounds={cfg.rounds}",
+              "waves_per_round": want["waves"] // cfg.rounds,
+              "acc": h["acc"], "loss": h["loss"],
+              "teacher_loss": h["teacher_loss"],
+              "student_loss": h["student_loss"],
+              "participants": h["participants"],
+              "round_seconds": h["round_seconds"],
+              "steady_s_per_round": _steady(h), "seconds_total": total,
+              "launches": counts, "expected_kd_launches": want["kd"],
+              "expected_kmeans_launches": want_km, "perf": breakdown})
+    ratio = (_steady(runs["universe 100000"])
+             / _steady(runs["universe 1000"]))
+    gaps, loss_gaps = _hold("3 waves against one wave",
+                            runs["universe 100000"], runs["one wave"],
+                            0.01, 1e-2, ("participants",))
+    emit({"phase": "scale_path", "check": "3 waves against one wave of "
+          "the same cohort", "required": "1 point, 1e-2 relative loss",
+          "acc_gap": gaps, "loss_rel_gap": loss_gaps,
+          "steady_s_per_round": {k: _steady(h) for k, h in runs.items()},
+          "universe_ratio_100000_over_1000": ratio})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_h = runtime_h["fedsikd loop"]
+        cfg = FedConfig(algorithm="fedsikd", engine="sharded",
+                        pack=PACKED_LANES, rounds=RUNTIME_ROUNDS,
+                        ckpt_every=1, ckpt_dir=f"{tmp}/full",
+                        **RUNTIME_KNOBS)
+        h, total, counts, want, breakdown = _scale_run(ds, cfg)
+        h_again, _, _ = _runtime_run(ds, dataclasses.replace(
+            cfg, ckpt_dir=f"{tmp}/again"))
+        bitwise = all(h_again[k] == h[k] for k in
+                      ("acc", "loss", "teacher_loss", "student_loss"))
+        h_res, found = _resumed_against(ds, cfg, h, RUNTIME_CUT,
+                                        f"{tmp}/cut")
+        events = sum(1 for r in h["recluster"] if r)
+        n0 = cfg.num_clients - sum(c for _, c in cfg.join_schedule)
+        merges = _arrivals_only_rounds(h)
+        want_km = _check_scale_launches("fedsikd packed join-and-share", cfg,
+                                        counts, want, n0, events, merges)
+        labels_equal = h["labels_history"] == loop_h["labels_history"]
+        gaps, loss_gaps = _hold("fedsikd packed join-and-share against loop", h,
+                                loop_h, 0.03, LOSS_RTOL_TO_LOOP, ASYNC_KEYS)
+        emit({"phase": "scale_path", "run": "fedsikd packed join-and-share",
+              "config": f"fedsikd sharded pack={PACKED_LANES} mnist "
+              f"{cfg.num_clients} clients ({n0} at round 1) "
+              f"rounds={cfg.rounds} " + " ".join(
+                  f"{k}={v}" for k, v in RUNTIME_KNOBS.items()),
+              "acc": h["acc"], "loss": h["loss"],
+              "loop_acc": loop_h["acc"], "loop_loss": loop_h["loss"],
+              "acc_gap_to_loop": gaps, "loss_rel_gap_to_loop": loss_gaps,
+              **{k: h.get(k) for k in PLAN_KEYS},
+              "labels_history_equal_to_loop": labels_equal,
+              "round_seconds": h["round_seconds"],
+              "loop_round_seconds": loop_h["round_seconds"],
+              "steady_s_per_round": _steady(h), "seconds_total": total,
+              "launches": counts, "expected_kd_launches": want["kd"],
+              "expected_kmeans_launches": want_km,
+              "expected_fused_merges": merges, "reclustering_events": events,
+              "two_runs_bit_identical": bitwise, "restore": found,
+              "resumed_acc": h_res["acc"], "resumed_loss": h_res["loss"],
+              "perf": breakdown})
+        _hold_resumed("fedsikd packed", h_res, h, bitwise)
+        out["fedsikd packed join-and-share"] = counts
+
+    packed_kw = dict(engine="sharded", pack=16, n_devices=1)
+    h_loop, total_loop, counts_loop = _runtime_run(
+        ds, FedConfig(**SCALE_FEDAVG))
+    # under the guards, so the driver warms the arrival fold (one N = 1
+    # merge) in round 1 and the guarded rounds 3-4 merge with no new plan
+    cfg = FedConfig(**SCALE_FEDAVG, **packed_kw, guards=True)
+    h, total, counts, _, breakdown = _scale_run(ds, cfg)
+    merges = _arrivals_only_rounds(h) + 1
+    if counts["fused_merge"] != merges or counts["fused_merge_variants"] != {
+            "leaf": 0, "leaves": merges} or counts["kd_softmax_kl_fwd"] \
+            or counts["kmeans_assign"]:
+        raise RuntimeError(f"fedavg packed 2 waves: expected {merges} "
+                           f"fused merges (arrivals-only rounds + the "
+                           f"warm-in's), all 'leaves', and no KD or k-means "
+                           f"launches, counted {counts}")
+    loop_merges = _merging_rounds(h_loop)
+    if counts_loop["fused_merge"] != loop_merges:
+        raise RuntimeError(f"fedavg loop: expected {loop_merges} merges, "
+                           f"counted {counts_loop['fused_merge']}")
+    gaps, loss_gaps = _hold("fedavg packed 2 waves against loop", h, h_loop,
+                            0.03, LOSS_RTOL_TO_LOOP, ASYNC_KEYS[:3])
+    emit({"phase": "scale_path", "run": "fedavg packed 2 waves",
+          "config": "fedavg sharded pack=16 n_devices=1 mnist 40 clients "
+          "stratified cohort=32 (2 waves) dropout=0.2 async straggler_frac="
+          "0.4 max_staleness=2 guards=True rounds=4, against loop fedavg",
+          "acc": h["acc"], "loss": h["loss"], "loop_acc": h_loop["acc"],
+          "loop_loss": h_loop["loss"], "acc_gap_to_loop": gaps,
+          "loss_rel_gap_to_loop": loss_gaps,
+          **{k: h.get(k) for k in ASYNC_KEYS},
+          "round_seconds": h["round_seconds"],
+          "loop_round_seconds": h_loop["round_seconds"],
+          "steady_s_per_round": _steady(h),
+          "loop_steady_s_per_round": _steady(h_loop),
+          "seconds_total": total, "loop_seconds_total": total_loop,
+          "launches": counts, "loop_launches": counts_loop,
+          "expected_fused_merges": merges, "perf": breakdown})
+    out["fedavg packed 2 waves"] = counts
+    out["fedavg loop scale"] = counts_loop
     return out
 
 
@@ -1452,8 +1707,8 @@ def _fa_timing(shape, seed):
     return out
 
 
-def phase_timing(errs, path_counts, merge_paths, kmeans_paths, variants,
-                 smi):
+def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
+                 variants, smi):
     import torch
     rows_path = PATH_ROWS
     kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
@@ -1493,13 +1748,13 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, variants,
          "replaces": "src/repro/kernels/kd_softmax_kl.py:33",
          "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
          **kd_fwd, "library_ms": None, "large": kd_large["fwd"],
-         "path": "run_federated packed"},
+         "launches_by_path": kd_paths, "path": "run_federated packed"},
         {"name": "kd_softmax_kl_bwd", "route": "cuda",
          "source": src + "kd_softmax_kl.cu",
          "replaces": "src/repro/kernels/kd_softmax_kl.py:118",
          "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
          **kd_bwd, "library_ms": None, "large": kd_large["bwd"],
-         "path": "run_federated packed"},
+         "launches_by_path": kd_paths, "path": "run_federated packed"},
         {"name": "fused_merge", "route": "cuda",
          "source": src + "fused_merge.cu",
          "replaces": "src/repro/kernels/fused_merge.py:30",
@@ -1805,7 +2060,8 @@ def main() -> int:
     merge_counts, loop_h = phase_main_path(ds)
     packed_counts, packed_h = phase_packed_path(ds, loop_h)
     baseline_merges = phase_baselines_path(ds, loop_h, packed_h)
-    runtime_counts = phase_runtime_path(ds, loop_h, packed_h)
+    runtime_counts, runtime_h = phase_runtime_path(ds, loop_h, packed_h)
+    scale_counts = phase_scale_path(ds, runtime_h)
     lm_counts, lm_variants = phase_lm_serve(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
@@ -1822,6 +2078,12 @@ def main() -> int:
                     ("kmeans_assign", runtime_counts["fedsikd loop runtime"]),
                     ("kmeans_assign",
                      runtime_counts["fedsikd packed runtime"]),
+                    *((k, c) for run, c in scale_counts.items()
+                      if run.startswith("fedsikd")
+                      for k in ("kd_softmax_kl_fwd", "kd_softmax_kl_bwd",
+                                "kmeans_assign")),
+                    ("fused_merge", scale_counts["fedavg loop scale"]),
+                    ("fused_merge", scale_counts["fedavg packed 2 waves"]),
                     ("flash_attention", lm_counts)):
         if c[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")
@@ -1837,12 +2099,21 @@ def main() -> int:
                    "stale merges (s >= 1)": {
                        k: c["fused_merge_stale"]
                        for k, c in runtime_counts.items()}}
+    merge_paths.update({k: c["fused_merge"]
+                        for k, c in scale_counts.items()})
     kmeans_paths = {"fedsikd loop": merge_counts["kmeans_assign"],
                     "fedsikd packed": packed_counts["kmeans_assign"],
                     **{k: c["kmeans_assign"]
-                       for k, c in runtime_counts.items()}}
-    phase_timing(errs, path_counts, merge_paths, kmeans_paths, lm_variants,
-                 smi)
+                       for k, c in runtime_counts.items()},
+                    **{k: c["kmeans_assign"]
+                       for k, c in scale_counts.items()
+                       if k.startswith("fedsikd")}}
+    kd_paths = {"fedsikd packed": packed_counts["kd_softmax_kl_fwd"],
+                **{k: c["kd_softmax_kl_fwd"]
+                   for k, c in scale_counts.items()
+                   if k.startswith("fedsikd")}}
+    phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
+                 lm_variants, smi)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

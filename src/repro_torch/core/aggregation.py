@@ -12,6 +12,10 @@ Parameters are dicts of tensors.  Every weighted merge goes through ONE
 fused contraction over all leaves (``_fused_merge`` ->
 ``kernels.ops.fused_merge_leaves``): one CUDA kernel launch a dtype for
 tensors on the card, its plain version leaf by leaf on the CPU.
+
+The packed engine's wave folds (``fold_partials``, ``add_scaled``) and the
+tree helpers are plain torch, as the JAX package computes them in jnp
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -106,3 +110,39 @@ def staleness_weighted_average(params: Sequence[dict], base_weights,
 def tree_sub(a: dict, b: dict) -> dict:
     """Leaf-wise ``a - b`` of two param dicts (FL+HC's model updates)."""
     return {k: v - b[k] for k, v in a.items()}
+
+
+def _fold2(a: dict, b: dict) -> dict:
+    return {k: (v.float() + b[k].float()).to(v.dtype) for k, v in a.items()}
+
+
+def fold_partials(parts: Sequence[dict]) -> dict:
+    """Fold per-wave UNNORMALISED partial aggregates into the cohort sum.
+    Each wave contracts its lanes with a slice of the row normalised over
+    the whole plan, so the cohort mean is the plain sum of the partials.
+    A deterministic left fold in float32, cast back to each leaf's dtype;
+    a single partial comes back untouched, so a one-wave round is
+    bit-identical to the path without waves."""
+    if not parts:
+        raise ValueError("fold_partials needs at least one partial")
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = _fold2(acc, p)
+    return acc
+
+
+def add_scaled(acc: dict, params: dict, scale: float) -> dict:
+    """``acc + scale * params`` leaf by leaf (float32 accumulation with a
+    float32 scale, cast back to each leaf's dtype): how the packed engines
+    fold a buffered late update into the program's on-time aggregate."""
+    s = np.float32(scale)
+    return {k: (a.float() + float(s) * params[k].float()).to(a.dtype)
+            for k, a in acc.items()}
+
+
+def tree_add(a: dict, b: dict) -> dict:
+    return {k: v + b[k] for k, v in a.items()}
+
+
+def tree_scale(a: dict, s: float) -> dict:
+    return {k: v * s for k, v in a.items()}

@@ -34,8 +34,11 @@ Semi-async hook: with ``cfg.async_mode`` the driver sets ``alg.buffer``
 due updates) before each ``run_round``.  A loop strategy pushes its
 straggling participants' updates into the buffer with their birth-round
 base weight, and merges the on-time updates with the arrivals through
-``staleness_merge``.  With no stragglers and no arrivals it takes its
-synchronous merge, so ``straggler_frac=0`` repeats ``async_mode=False``.
+``staleness_merge``.  A packed strategy splits the same merge
+(``packed_async_row``): its round program contracts the on-time lanes and
+the host folds each arrival in.  With no stragglers and no arrivals either
+takes its synchronous merge, so ``straggler_frac=0`` repeats
+``async_mode=False``.
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ from repro_torch import rng
 from repro_torch.core import aggregation as agg
 from repro_torch.data.pipeline import ClientShard
 from repro_torch.fed.lifecycle import ClientLifecycle, LifecycleEvent
-from repro_torch.fed.schedule import RoundPlan, RoundScheduler
+from repro_torch.fed.schedule import (RoundPlan, RoundScheduler,
+                                     fed_mesh_layout)
 
 
 class Algorithm:
@@ -91,6 +95,18 @@ class Algorithm:
             return None
         return min(cfg.clients_per_round, int((np.asarray(labels) >= 0).sum()))
 
+    def forced_devices(self, cfg) -> Optional[int]:
+        """The slot layout's device count, pinned independently of the
+        current roster: ``cfg.n_devices`` when set; else, under a
+        lifecycle, the count that hosts the largest roster any join can
+        produce, so re-clustering never changes the slot count."""
+        if cfg.n_devices is not None:
+            return cfg.n_devices
+        if self.lifecycle is None:
+            return None
+        cap = cfg.clients_per_round or cfg.num_clients
+        return fed_mesh_layout(cap, pack=cfg.pack)[0]
+
     def prefetch(self, plan: Optional[RoundPlan]) -> None:
         """Start staging ``plan``'s data ahead of its round (packed engine
         only; the loop engine reads host batches per step)."""
@@ -111,6 +127,12 @@ class Algorithm:
         """Algorithm-specific history fields."""
         return {}
 
+    def warm_async_merge(self) -> None:
+        """Run the arrival fold once, on the live global model with a zero
+        scale, its result discarded: the driver calls it during the warm-in
+        of a guarded semi-async run, so the fused merge's first build and
+        plan fall outside the guarded rounds.  Default: nothing to warm."""
+
 
 # -------------------------------------------------- shared semi-async helpers
 def staleness_merge(on_params, on_weights, arrivals, decay: float):
@@ -122,6 +144,30 @@ def staleness_merge(on_params, on_weights, arrivals, decay: float):
     base = list(on_weights) + [float(u.weight) for u in arrivals]
     stale = [0] * len(on_params) + [u.staleness for u in arrivals]
     return agg.staleness_weighted_average(params, base, stale, decay=decay)
+
+
+def packed_async_row(w_slot, on_time, arrivals, decay: float):
+    """The packed engines' split of the same merge: ``(row, scales)`` with
+    ``row`` the (S,) contraction row (on-time slots' base weights over the
+    grand total) and ``scales`` the per-arrival ``aggregation.add_scaled``
+    factors (decayed weight over the same total).  The round program's
+    contraction is the unnormalised sum ``sum_i row_i x_i``, so the
+    program's on-time lanes plus the host's folded arrivals reproduce
+    ``staleness_weights`` exactly; straggling lanes weigh 0."""
+    w = np.where(np.asarray(on_time), np.asarray(w_slot, np.float64), 0.0)
+    f = agg.staleness_factor([u.staleness for u in arrivals], decay)
+    total = w.sum() + sum(float(u.weight) * float(fi)
+                          for u, fi in zip(arrivals, f))
+    scales = [float(u.weight) * float(fi) / total
+              for u, fi in zip(arrivals, f)]
+    return (w / total).astype(np.float32), scales
+
+
+def merge_arrivals_only(arrivals, decay: float):
+    """A round with arrivals and NO on-time participant (every invitee a
+    straggler or a dropout): the merge is the arrivals alone, one fused
+    merge."""
+    return staleness_merge([], [], arrivals, decay)
 
 
 # ------------------------------------------------ shared loop-engine helpers

@@ -1,5 +1,5 @@
 """FedAvg / FedProx baseline strategies on both engines: the port of
-``repro.fed.algorithms.baselines`` for synchronous rounds.
+``repro.fed.algorithms.baselines``.
 
 The paper's headline claims are comparative (FedSiKD against FedAvg and
 FedProx at alpha in {0.1, 0.5}), so the baselines run on the same engines
@@ -22,25 +22,28 @@ example weights, so they agree up to the order of float32 sums.  Random
 streams are integer seeds (``repro_torch.rng``), folded where the JAX code
 folds its keys; only HAR's dropout reads them.
 
-The loop engine also runs the client lifecycle (a roster change rebuilds
-the scheduler over the active clients; there is no cluster structure to
+Both engines also run the client lifecycle (a roster change rebuilds the
+scheduler over the active clients; there is no cluster structure to
 migrate) and semi-async rounds (stragglers' updates go to the driver's
 buffer under their example counts and merge late with staleness-decayed
-weights).  Both engines checkpoint the JAX package's arrays: the global
-model as ``student`` and the roster's labels.  The packed engine's
-lifecycle and async rounds are not ported (``rounds.unported_knobs``).
+weights), and checkpoint the JAX package's arrays: the global model as
+``student`` and the roster's labels.  The packed engine also streams a
+cohort larger than one wave through its program and runs over a virtual
+client universe (``cfg.universe``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import convert, rng
+from repro_torch import convert, perf, rng
 from repro_torch.core import aggregation as agg
 from repro_torch.data.pipeline import ClientStore
 from repro_torch.fed import schedule
 from repro_torch.fed import sharded as sh
 from repro_torch.fed.algorithms.base import (Algorithm, local_epochs,
+                                             merge_arrivals_only,
+                                             packed_async_row,
                                              staleness_merge, tree_copy)
 from repro_torch.fed.client import evaluate, make_steps
 from repro_torch.fed.driver import AsyncUpdate
@@ -163,8 +166,15 @@ class LoopBaseline(_BaselineBase):
 class PackedBaseline(_BaselineBase):
     """FedAvg/FedProx on the packed engine: every participating client runs
     its masked local steps as a lane of one stacked program, then one
-    example-weighted product a leaf gives every slot the new global model.
-    One wave a round (more raise in ``rounds.unported_knobs``)."""
+    example-weighted product a leaf gives every slot the aggregate.
+
+    Waves: a cohort larger than ``S`` streams through the same program wave
+    by wave; every wave starts from the round-start global params, its
+    contraction row is a slice of the example row over the WHOLE plan, and
+    ``aggregation.fold_partials`` sums the per-wave partials into the
+    cohort mean.  Semi-async rounds split the staleness merge over raw
+    example counts (``packed_async_row``): straggling lanes weigh 0 and go
+    to the driver's buffer as copies, arrivals fold in on the host."""
 
     engine = "sharded"
 
@@ -172,21 +182,18 @@ class PackedBaseline(_BaselineBase):
         return schedule.RoundScheduler(
             labels, participation=cfg.participation,
             clients_per_round=self.clamped_clients_per_round(cfg, labels),
-            pack=cfg.pack, n_devices=cfg.n_devices, waves=cfg.waves,
-            dropout_rate=cfg.dropout_rate, seed=cfg.seed,
+            pack=cfg.pack, n_devices=self.forced_devices(cfg),
+            waves=cfg.waves, dropout_rate=cfg.dropout_rate, seed=cfg.seed,
             async_mode=cfg.async_mode, round_deadline=cfg.round_deadline,
             straggler_frac=cfg.straggler_frac,
             latency_dist=cfg.latency_dist)
 
     def _setup_engine(self):
         cfg, store = self.cfg, self.shards
-        if self.scheduler.n_waves != 1:
-            raise NotImplementedError(
-                "wave-scheduled rounds (more than one wave) are not ported "
-                "to repro_torch yet (ROADMAP Queue 1 item 9)")
         self.S = self.scheduler.wave_slots
-        # static per-client step budgets and the one-off (C, steps, B, ...)
-        # host staging: the loop engine's batch sequences
+        # static per-client step budgets and the one-off (R, steps, B, ...)
+        # host staging of the BASE pool (virtual clients alias base rows
+        # through ``row_of``): the loop engine's batch sequences
         self._base_counts = sh.client_step_counts(store.base, cfg.batch_size,
                                                   cfg.local_epochs)
         self.steps_all = self._base_counts[store.row_of]
@@ -199,7 +206,8 @@ class PackedBaseline(_BaselineBase):
             lane_dropout=make_lane_dropout(self.ds.name, student=False))
         self.stager = sh.WaveStager(self.x_all, self.y_all,
                                     device=self.device,
-                                    row_maps=(store.row_of, store.row_of))
+                                    row_maps=(store.row_of, store.row_of),
+                                    capacity=self.scheduler.n_waves + 1)
 
     def _prep(self, global_p):
         """The round-start global params on every slot, and a fresh stacked
@@ -219,23 +227,86 @@ class PackedBaseline(_BaselineBase):
                                    plan)
 
     def prefetch(self, plan):
-        """Stage the NEXT round's slot data while this round computes."""
+        """Stage the NEXT round's first wave while this round computes;
+        later waves are prefetched inside ``run_round``."""
         if plan is not None and plan.active.any():
             self.stager.prefetch(plan.wave(0))
 
+    def warm_async_merge(self):
+        g = self.global_params
+        agg.add_scaled(g, g, 0.0)
+        agg.staleness_weighted_average([g], [1.0], [1],
+                                       decay=self.cfg.staleness_decay)
+
     def run_round(self, plan, rnd):
+        cfg = self.cfg
+        arrivals = self.arrivals
         if not plan.active.any():
-            # every invited client dropped out: a no-op round
+            # every invited client dropped out: a no-op round, unless
+            # buffered updates arrive, which merge alone
+            if arrivals:
+                self.global_params = merge_arrivals_only(
+                    arrivals, cfg.staleness_decay)
             return {"train_loss": 0.0}
-        wp = plan.wave(0)
-        xs, ys = self.stager.stage(wp)
-        p_s, s_s = self._prep(self.global_params)
-        p_s, _p_local, _s_s, loss = self.round_fn(
-            p_s, s_s, xs, ys, wp.steps_for(self.steps_all),
-            self._slot_keys(rnd, wp), plan.example_row(self.sizes),
-            self.global_params)
-        self.global_params = self._take0(p_s)
-        return {"train_loss": float(loss)}      # the round's one host sync
+        has_async = bool(arrivals) or bool(plan.stragglers.any())
+        # the row is built over the WHOLE plan and sliced per wave
+        if not has_async:
+            row, scales = plan.example_row(self.sizes), []
+        elif plan.on_time.any() or arrivals:
+            # split merge over raw example counts (the buffered entries'
+            # ``weight`` is their example count too)
+            safe = np.where(plan.active, plan.slot_client, 0)
+            n_slot = np.where(plan.active, self.sizes[safe], 0)
+            row, scales = packed_async_row(n_slot, plan.on_time, arrivals,
+                                           cfg.staleness_decay)
+        else:
+            row, scales = np.zeros(plan.n_slots, np.float32), []
+        ws, n_waves = plan.wave_slots or plan.n_slots, plan.n_waves
+        partials, losses = [], []
+        for w in range(n_waves):
+            wp = plan.wave(w)
+            if not wp.active.any():
+                continue
+            with perf.span("stage"):
+                xs, ys = self.stager.stage(wp)
+                p_s, s_s = self._prep(self.global_params)
+            with perf.span("compute"):
+                if w + 1 < n_waves:
+                    self.stager.prefetch(plan.wave(w + 1))
+                n_w = wp.steps_for(self.steps_all)
+                p_s, p_local, _s_s, loss = self.round_fn(
+                    p_s, s_s, xs, ys, n_w, self._slot_keys(rnd, wp),
+                    np.ascontiguousarray(row[w * ws:(w + 1) * ws]),
+                    self.global_params)
+                # the wave's one host sync, inside the span it waits for
+                losses.append((float(loss), int((n_w > 0).sum())))
+            with perf.span("aggregate"):
+                partials.append(self._take0(p_s))
+            if has_async:
+                for t in np.flatnonzero(wp.stragglers):
+                    c = int(wp.slot_client[t])
+                    self.buffer.push(AsyncUpdate(
+                        client=c, birth=rnd, arrival=rnd + int(wp.delays[t]),
+                        weight=float(self.sizes[c]),
+                        params=sh.take_rows(p_local, int(t))))
+        if len(losses) == 1:
+            loss = losses[0][0]
+        else:
+            tot = sum(c for _, c in losses)
+            loss = float(sum(lo * c for lo, c in losses) / tot) if tot else 0.0
+        p0 = partials[0] if len(partials) == 1 else agg.fold_partials(partials)
+        if not has_async:
+            self.global_params = p0
+        elif plan.on_time.any():
+            acc = p0
+            for u, sc in zip(arrivals, scales):
+                acc = agg.add_scaled(acc, u.params, sc)
+            self.global_params = acc
+        elif arrivals:
+            self.global_params = merge_arrivals_only(arrivals,
+                                                     cfg.staleness_decay)
+        # else: an all-straggler round with an empty buffer — unchanged
+        return {"train_loss": loss}
 
     def history_extras(self):
         return {"pack": self.scheduler.pack, "train_loss": []}

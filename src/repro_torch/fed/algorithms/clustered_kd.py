@@ -1,7 +1,7 @@
 """Clustered-KD strategies: FedSiKD (Alg. 1) and the RandomCluster
 ablation on both engines — the port of ``stat_features``,
-``_ClusteredKDBase``, ``LoopClusteredKD`` and ``ShardedClusteredKD`` (one
-wave, synchronous rounds) of ``repro.fed.algorithms.clustered_kd``.
+``_ClusteredKDBase``, ``LoopClusteredKD`` and ``ShardedClusteredKD`` of
+``repro.fed.algorithms.clustered_kd``.
 
 ``LoopClusteredKD`` is the sequential per-client reference: per round, each
 cluster's teacher trains on its leader's shard (or the sampled cluster
@@ -11,7 +11,7 @@ merge of the members' students (one fused-merge kernel launch a round on
 CUDA) becomes the new global student.  Random streams are integer seeds
 folded exactly where the JAX code folds its keys (``repro_torch.rng``).
 
-Runtime features of the loop engine:
+Runtime features of both engines:
 
 - client lifecycle: ``apply_lifecycle`` re-clusters the active roster with
   ``kmeans_warm`` from the previous centroids, in the feature space
@@ -22,15 +22,20 @@ Runtime features of the loop engine:
   ``apply_updates`` makes new tensors; nothing is changed in place);
 - semi-async rounds: a straggler's distilled student goes to the driver's
   buffer at its birth round, and each round merges the on-time students
-  with the arrivals under staleness-decayed weights in one fused merge;
+  with the arrivals under staleness-decayed weights (the loop engine in one
+  fused merge; the packed engine contracts its on-time lanes and folds the
+  arrivals in on the host, and merges arrivals alone in one fused merge);
   teachers stay synchronous (edge-hosted);
 - DP noise on the shared statistics (``cfg.dp_noise``): each client's
   draws come from its own generator, (seed + 17, client id).
 
 ``ShardedClusteredKD`` runs the same phases as lanes of one stacked program
-per round (``fed/sharded.py``): per-cluster teacher replicas on every
+per wave (``fed/sharded.py``): per-cluster teacher replicas on every
 participating slot, their sync, the students' distillation steps with the
-fused KD kernels for all lanes at once, and the plan-weighted merge.
+fused KD kernels for all lanes at once, and the plan-weighted merge.  A
+cohort larger than one wave streams through the program in waves, and a
+virtual client universe (``cfg.universe``) clusters its base pool once and
+labels each virtual client through the store's ``row_of``.
 
 Both engines checkpoint the JAX package's arrays: the global student, the
 teachers and their Adam states (a list on the loop engine, ``(K, ...)``
@@ -42,15 +47,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import convert, rng
+from repro_torch import convert, perf, rng
 from repro_torch.core import aggregation as agg
 from repro_torch.core import kmeans, stats
 from repro_torch.data.pipeline import ClientStore
 from repro_torch.fed import schedule
 from repro_torch.fed import sharded as sh
 from repro_torch.fed.algorithms.base import (Algorithm, cluster_epochs,
-                                             local_epochs, staleness_merge,
-                                             tree_copy)
+                                             local_epochs,
+                                             merge_arrivals_only,
+                                             packed_async_row,
+                                             staleness_merge, tree_copy)
 from repro_torch.fed.client import evaluate, make_steps
 from repro_torch.fed.driver import AsyncUpdate
 from repro_torch.models.cnn import make_lane_dropout, make_model
@@ -83,6 +90,23 @@ def stat_features(shards, cfg, roster=None, *, device="cpu"):
     return torch.cat([mean, std, skew], dim=1)
 
 
+def _fold_losses(per_wave):
+    """Combine per-wave ``(t_loss, t_cnt, s_loss, s_cnt)`` active-slot means
+    into cohort means weighted by each wave's active-slot counts.  A single
+    contributing wave passes its losses through untouched."""
+    def one(vals):
+        vals = [(lo, int(c)) for lo, c in vals if c > 0]
+        if not vals:
+            return 0.0
+        if len(vals) == 1:
+            return vals[0][0]
+        tot = float(sum(c for _, c in vals))
+        return float(sum(lo * c for lo, c in vals) / tot)
+
+    return (one([(tl, tc) for tl, tc, _, _ in per_wave]),
+            one([(sl, sc) for _, _, sl, sc in per_wave]))
+
+
 class _ClusteredKDBase(Algorithm):
     """Shared setup: clustering, leaders, scheduler, models/optimizers."""
 
@@ -95,7 +119,13 @@ class _ClusteredKDBase(Algorithm):
         self._stats_seed = cfg.seed + 17
         roster = np.flatnonzero(self.initial_active(cfg))
         if cfg.algorithm == "fedsikd":
-            raw = stat_features(shards, cfg, roster, device=self.device)
+            # with a virtual universe, statistics and k-means run over the
+            # materialised BASE pool (the only distinct data distributions)
+            # and labels reach the virtual clients through ``row_of``: a
+            # 100k universe builds no 100k-row feature matrix
+            stat_roster = (roster if cfg.universe is None
+                           else np.arange(shards.n_base))
+            raw = stat_features(shards, cfg, stat_roster, device=self.device)
             self._feat_mu, self._feat_sd = stats.standardize_params(raw)
             feats = stats.apply_standardize(raw, self._feat_mu, self._feat_sd)
             if cfg.num_clusters is None:
@@ -110,6 +140,8 @@ class _ClusteredKDBase(Algorithm):
             self.K0 = len(occ)
             self.centroids = res.centroids.cpu().numpy()[occ]
             lab = np.searchsorted(occ, lab)
+            if cfg.universe is not None:
+                lab = lab[shards.row_of[roster]]
         else:                          # random-cluster ablation baseline
             r = np.random.default_rng(cfg.seed + 3)
             k = cfg.num_clusters or 4
@@ -143,8 +175,8 @@ class _ClusteredKDBase(Algorithm):
         self.scheduler = schedule.RoundScheduler(
             self.labels, participation=cfg.participation,
             clients_per_round=self.clamped_clients_per_round(cfg, self.labels),
-            pack=cfg.pack, n_devices=cfg.n_devices, waves=cfg.waves,
-            weighting=cfg.cluster_weighting, dropout_rate=cfg.dropout_rate,
+            pack=cfg.pack, n_devices=self.forced_devices(cfg),
+            waves=cfg.waves, weighting=cfg.cluster_weighting, dropout_rate=cfg.dropout_rate,
             seed=cfg.seed, async_mode=cfg.async_mode,
             round_deadline=cfg.round_deadline,
             straggler_frac=cfg.straggler_frac,
@@ -181,6 +213,7 @@ class _ClusteredKDBase(Algorithm):
         shift = (float(np.mean(old_labels[both] != labels_full[both]))
                  if both.any() else 0.0)
         self._rebuild_structures(labels_full)
+        self._post_lifecycle()
         return {"recluster": 1.0, "cluster_shift": shift,
                 "active_clients": float(event.active.sum()),
                 "migrated_teachers": float(
@@ -191,6 +224,11 @@ class _ClusteredKDBase(Algorithm):
 
     def _migrate_teachers(self, migrate: np.ndarray) -> None:
         raise NotImplementedError
+
+    def _post_lifecycle(self) -> None:
+        """Engine hook after a roster rebuild (the packed engine re-stages
+        its teacher feed; the loop engine reads ``clusters`` and
+        ``leaders`` as they are)."""
 
     def _labels_and_centroids(self) -> dict:
         """The checkpoint's labels (int32) and, for FedSiKD, centroids."""
@@ -204,6 +242,7 @@ class _ClusteredKDBase(Algorithm):
         if "centroids" in arrays:
             self.centroids = arrays["centroids"].numpy()
         self._rebuild_structures(arrays["labels"].numpy())
+        self._post_lifecycle()
 
     def _init_student(self) -> dict:
         return self.s_model[0](rng.fold_seed(self.seed), self.device)
@@ -346,22 +385,34 @@ class LoopClusteredKD(_ClusteredKDBase):
 
 # ------------------------------------------------------------- packed engine
 class ShardedClusteredKD(_ClusteredKDBase):
-    """Alg. 1 on the packed engine: the round's ``S`` slots are lanes of one
+    """Alg. 1 on the packed engine: each wave's ``S`` slots are lanes of one
     stacked program on the card (``fed/sharded.py``).
 
     Canonical state lives per CLUSTER between rounds (teachers and their
     Adam states: ``(K, ...)`` stacks; the student: one global dict).  Each
-    round gathers it onto the plan's slots, runs the round program, and
+    wave gathers it onto the wave's slots, runs the round program, and
     scatters the refreshed teachers back from each cluster's first active
     slot; a cluster with no sampled member keeps its teacher untouched,
     exactly like the loop engine skipping it.
 
-    On one card every slot lives on the one device: ``pack`` (with
-    ``n_devices``) sets only the slot count and numbering and changes no
-    result.  ``donate`` has no effect: the slot tensors are rebuilt from the
-    canonical state every round, as in JAX, and nothing is updated in
-    place.  One wave per round and synchronous merges only; the rest raises
-    in ``rounds.unported_knobs``."""
+    Waves: a cohort larger than ``S`` streams through the same program in
+    ``plan.n_waves`` passes.  Every wave starts from the round-start
+    snapshots (teachers and student); in leader mode a wave's refresh of a
+    cluster is reproducible from that snapshot, so repeated scatters agree
+    and the last wave's write stands.  Each wave contracts its students
+    with its slice of the row computed over the WHOLE plan (never
+    renormalised per wave) and ``aggregation.fold_partials`` sums the
+    partials.  Semi-async rounds split the staleness merge
+    (``packed_async_row``): straggling lanes weigh 0 in the program and go
+    to the driver's buffer as copies (``sharded.take_rows``), and arrivals
+    are folded in on the host with ``aggregation.add_scaled``.
+
+    On one card every slot lives on the one device: ``pack`` and
+    ``n_devices`` set only the slot count and numbering.  The slot count is
+    pinned for the run (``Algorithm.forced_devices``), so a lifecycle join
+    never changes a shape.  ``donate`` has no effect: the slot tensors are
+    rebuilt from the canonical state every wave, as in JAX, and nothing is
+    updated in place."""
 
     engine = "sharded"
 
@@ -372,10 +423,11 @@ class ShardedClusteredKD(_ClusteredKDBase):
 
     def _setup_engine(self):
         cfg, store = self.cfg, self.shards
-        if self.scheduler.n_waves != 1:
-            raise NotImplementedError(
-                "wave-scheduled rounds (more than one wave) are not ported "
-                "to repro_torch yet (ROADMAP Queue 1 item 9)")
+        if self.scheduler.n_waves > 1 and cfg.teacher_data == "cluster":
+            raise ValueError(
+                "teacher_data='cluster' needs the whole cluster on the card "
+                "at once; wave-scheduled rounds require "
+                "teacher_data='leader'")
         self.S = self.scheduler.wave_slots
         self.K = self.K0
         t_fwd, s_fwd = self.t_model[1], self.s_model[1]
@@ -386,13 +438,19 @@ class ShardedClusteredKD(_ClusteredKDBase):
             s_fwd, self.s_opt, kd_temperature=cfg.kd_temperature,
             kd_alpha=cfg.kd_alpha)
         # static per-client step budgets (the loop engine's batch counts)
-        # and the one-off (C, steps, B, ...) host staging of every shard
+        # and the one-off (R, steps, B, ...) host staging of the BASE pool:
+        # virtual clients stage through ``row_of`` at gather time, so host
+        # memory scales with the pool, never the universe
         self._base_counts = sh.client_step_counts(
             store.base, cfg.batch_size, cfg.local_epochs)
         self.s_steps_all = self._base_counts[store.row_of]
         self.sx_all, self.sy_all = sh.stack_client_data(
             store.base, int(self._base_counts.max()), cfg.batch_size,
             seed=cfg.seed)
+        # teacher-feed width: under a lifecycle, the largest budget of any
+        # client, so a leader change never changes the staged step count
+        self._t_cap = (int(self.s_steps_all.max())
+                       if self.lifecycle is not None else None)
         self._feed_of = None
         self._restage_teacher_feed()
         self.t_dropout = make_lane_dropout(self.ds.name, student=False)
@@ -406,10 +464,12 @@ class ShardedClusteredKD(_ClusteredKDBase):
 
     def _restage_teacher_feed(self):
         """Build the per-client teacher feed, its step budgets and the slot
-        stager.  "leader" streams the cluster leader's shard to every slot
-        of the cluster (identical batches keep the replicas in sync);
-        "cluster" streams each client's own shard, which the teacher sync
-        turns into data-parallel training over the union."""
+        stager, at setup and after every roster rebuild.  "leader" streams
+        the cluster leader's shard to every slot of the cluster (identical
+        batches keep the replicas in sync); "cluster" streams each client's
+        own shard, which the teacher sync turns into data-parallel training
+        over the union.  Skipped when the feed is unchanged (a
+        re-clustering that keeps every client's leader)."""
         cfg, store = self.cfg, self.shards
         total = len(store)
         if cfg.teacher_data == "leader":
@@ -423,15 +483,28 @@ class ShardedClusteredKD(_ClusteredKDBase):
                                                         self._feed_of):
             return
         self._feed_of = feed_of
+        # the teacher stack holds the base rows once; each slot maps to its
+        # feed's base row at gather time
         self._t_map = store.row_of[feed_of]
         self.t_steps_all = self._base_counts[self._t_map]
+        cap = self._t_cap or int(self.t_steps_all.max())
         self.tx_all, self.ty_all = sh.stack_client_data(
-            store.base, int(self.t_steps_all.max()), cfg.batch_size,
-            seed=cfg.seed)
+            store.base, cap, cfg.batch_size, seed=cfg.seed)
         self.stager = sh.WaveStager(
             self.tx_all, self.ty_all, self.sx_all, self.sy_all,
             device=self.device,
-            row_maps=(self._t_map, self._t_map, store.row_of, store.row_of))
+            row_maps=(self._t_map, self._t_map, store.row_of, store.row_of),
+            capacity=self.scheduler.n_waves + 1)
+
+    def _post_lifecycle(self):
+        self._restage_teacher_feed()
+
+    def _migrate_teachers(self, migrate):
+        if np.array_equal(migrate, np.arange(self.K0)):
+            return
+        idx = torch.as_tensor(migrate, device=self.device)
+        self.tp_k = tree_map(lambda a: a[idx], self.tp_k)
+        self.ts_k = tree_map(lambda a: a[idx], self.ts_k)
 
     # ------------------------------------------------- slot gather/scatter
     def _teacher_row(self, plan) -> np.ndarray:
@@ -440,14 +513,19 @@ class ShardedClusteredKD(_ClusteredKDBase):
         comp = np.where(plan.active, plan.slot_cluster, 0)
         return np.where(plan.active, self.cluster_ids[comp], 0)
 
-    def _gather_teachers(self, kidx):
-        """The (S, ...) teacher params and Adam states of the slots."""
-        idx = torch.as_tensor(kidx, device=self.device)
-        return (tree_map(lambda a: a[idx], self.tp_k),
-                tree_map(lambda a: a[idx], self.ts_k))
+    def _prep(self, tp_k, ts_k, sp_global, plan):
+        """The (S, ...) slot state of one wave: each slot's teacher and its
+        Adam state gathered from the (K, ...) stacks, the global student on
+        every slot and a fresh student Adam state (the loop engine's
+        per-client ``opt.init``)."""
+        idx = torch.as_tensor(self._teacher_row(plan), device=self.device)
+        tp_s = tree_map(lambda a: a[idx], tp_k)
+        ts_s = tree_map(lambda a: a[idx], ts_k)
+        sp_s = tree_map(lambda a: a.expand((self.S,) + a.shape), sp_global)
+        return tp_s, ts_s, sp_s, sh.stacked_opt_init(self.s_opt, sp_s)
 
     def _scatter_src(self, plan):
-        """Scatter operands for ``_scatter``: which teacher rows the round
+        """Scatter operands for ``_scatter``: which teacher rows the wave
         refreshed (``refreshed``, (K,) bool) and the first active slot
         sourcing each (``safe``, (K,) int; untouched rows read slot 0 but
         are masked out)."""
@@ -461,20 +539,20 @@ class ShardedClusteredKD(_ClusteredKDBase):
         return (torch.as_tensor(refreshed, device=self.device),
                 torch.as_tensor(safe, device=self.device))
 
-    def _scatter(self, tp_s, ts_s, plan):
-        """Write the refreshed teacher rows back into the (K, ...) stacks."""
+    def _scatter(self, tp_s, ts_s, plan, tp_k, ts_k):
+        """``tp_k``/``ts_k`` with the wave's refreshed teacher rows written
+        in (new stacks; the inputs are not changed)."""
         refreshed, safe = self._scatter_src(plan)
 
         def upd(new, old):
             mask = refreshed.reshape((self.K,) + (1,) * (old.dim() - 1))
             return torch.where(mask, new[safe], old)
 
-        self.tp_k = tree_map(upd, tp_s, self.tp_k)
-        self.ts_k = tree_map(upd, ts_s, self.ts_k)
+        return tree_map(upd, tp_s, tp_k), tree_map(upd, ts_s, ts_k)
 
     def _student_keys(self, salt: int, plan) -> np.ndarray:
         """Per-slot student seeds, folded by client id (stable under slot
-        re-assignment across rounds)."""
+        re-assignment across rounds and waves)."""
         return sh.slot_client_keys(rng.fold_seed(self.seed, salt), plan)
 
     def _teacher_keys(self, salt: int, plan) -> np.ndarray:
@@ -490,7 +568,7 @@ class ShardedClusteredKD(_ClusteredKDBase):
     # ---------------------------------------------------------------- rounds
     def warmup(self):
         """Alg. 1 KD establishment: teacher warm-up before round 1 as its own
-        lane-stacked phase."""
+        lane-stacked phase, wave by wave from the same snapshot."""
         cfg = self.cfg
         if cfg.teacher_warmup_epochs <= 0:
             return
@@ -499,48 +577,127 @@ class ShardedClusteredKD(_ClusteredKDBase):
         wx_all, wy_all = sh.stack_client_data(
             self.shards.base, int(w_steps_all.max()), cfg.batch_size,
             seed=cfg.seed)
-        wp = self.scheduler.warmup_plan().wave(0)
-        if not wp.active.any():
-            return
+        planw = self.scheduler.warmup_plan()
         warm = sh.make_packed_teacher_phase(self.t_model[1], self.opt,
                                             lane_dropout=self.t_dropout)
-        tp_s, ts_s = self._gather_teachers(self._teacher_row(wp))
-        wx, wy = sh.stage_on_slots(wp, wx_all, wy_all, device=self.device,
-                                   row_maps=(self._t_map, self._t_map))
-        tp_s, ts_s, wl = warm(tp_s, ts_s, wx, wy, wp.steps_for(w_steps_all),
-                              self._teacher_keys(9001, wp),
-                              wp.sync_matrix())
-        self._scatter(tp_s, ts_s, wp)
-        if self.progress:
+        tp0, ts0 = self.tp_k, self.ts_k
+        tp_acc, ts_acc = tp0, ts0
+        wl = None
+        for w in range(planw.n_waves):
+            wp = planw.wave(w)
+            if not wp.active.any():
+                continue
+            tp_s, ts_s, _, _ = self._prep(tp0, ts0, self.sp_global, wp)
+            wx, wy = sh.stage_on_slots(wp, wx_all, wy_all, device=self.device,
+                                       row_maps=(self._t_map, self._t_map))
+            tp_s, ts_s, wl = warm(tp_s, ts_s, wx, wy,
+                                  wp.steps_for(w_steps_all),
+                                  self._teacher_keys(9001, wp),
+                                  wp.sync_matrix())
+            tp_acc, ts_acc = self._scatter(tp_s, ts_s, wp, tp_acc, ts_acc)
+        self.tp_k, self.ts_k = tp_acc, ts_acc
+        if self.progress and wl is not None:
             print(f"  warmup  teacher_loss={float(wl):.4f}")
 
     def prefetch(self, plan):
-        """Start staging the NEXT round's slot data while this round
-        computes (plans are pure functions of (seed, round))."""
+        """Start staging the NEXT round's first wave while this round
+        computes (plans are pure functions of (seed, round)); later waves
+        are prefetched inside ``run_round``."""
         if plan is not None and plan.active.any():
             self.stager.prefetch(plan.wave(0))
 
+    def warm_async_merge(self):
+        g = self.sp_global
+        agg.add_scaled(g, g, 0.0)
+        agg.staleness_weighted_average([g], [1.0], [1],
+                                       decay=self.cfg.staleness_decay)
+
     def run_round(self, plan, rnd):
+        cfg = self.cfg
+        arrivals = self.arrivals
         if not plan.active.any():
-            # every invited client dropped out: canonical state untouched
+            # every invited client dropped out: canonical state untouched,
+            # unless buffered updates arrive, which merge alone
+            if arrivals:
+                self.sp_global = merge_arrivals_only(arrivals,
+                                                     cfg.staleness_decay)
             return {"teacher_loss": 0.0, "student_loss": 0.0}
-        wp = plan.wave(0)
-        tx, ty, sx, sy = self.stager.stage(wp)
-        tp_s, ts_s = self._gather_teachers(self._teacher_row(wp))
-        sp_s = tree_map(lambda a: a.expand((self.S,) + a.shape),
-                        self.sp_global)
-        ss_s = sh.stacked_opt_init(self.s_opt, sp_s)   # fresh, as the loop
-        # disjoint even/odd salts keep the teacher and student streams apart
-        tp_s, ts_s, sp_s, _sp_local, _ss, t_loss, s_loss = self.round_fn(
-            tp_s, ts_s, sp_s, ss_s, tx, ty, wp.steps_for(self.t_steps_all),
-            sx, sy, wp.steps_for(self.s_steps_all),
-            self._teacher_keys(2 * rnd, wp), self._student_keys(2 * rnd + 1,
-                                                                wp),
-            wp.sync_matrix(), plan.agg_row())
-        self._scatter(tp_s, ts_s, wp)
-        self.sp_global = {k: v[0] for k, v in sp_s.items()}
-        # the round's one host sync
-        t_loss, s_loss = torch.stack([t_loss, s_loss]).tolist()
+        has_async = bool(arrivals) or bool(plan.stragglers.any())
+        # the (L,) row is computed over the WHOLE plan and sliced per wave:
+        # each wave's contraction is then an unnormalised partial sum
+        if not has_async:
+            row, scales = plan.agg_row(), []
+        elif plan.on_time.any() or arrivals:
+            # split merge: the program contracts the on-time lanes with
+            # ``row``; the host folds each arrival with its ``scale``
+            row, scales = packed_async_row(plan.slot_weight, plan.on_time,
+                                           arrivals, cfg.staleness_decay)
+        else:
+            # every active slot straggled and nothing arrived: a zero row
+            # (the stragglers still train and are buffered below; the
+            # global student holds)
+            row, scales = np.zeros(plan.n_slots, np.float32), []
+        tp0, ts0, sp_start = self.tp_k, self.ts_k, self.sp_global
+        tp_acc, ts_acc = tp0, ts0
+        partials, losses = [], []
+        ws, n_waves = plan.wave_slots or plan.n_slots, plan.n_waves
+        for w in range(n_waves):
+            wp = plan.wave(w)
+            if not wp.active.any():
+                continue
+            with perf.span("stage"):
+                tx, ty, sx, sy = self.stager.stage(wp)
+                tp_s, ts_s, sp_s, ss_s = self._prep(tp0, ts0, sp_start, wp)
+            with perf.span("compute"):
+                if w + 1 < n_waves:
+                    # wave w+1's gather and copy run behind this wave
+                    self.stager.prefetch(plan.wave(w + 1))
+                t_n = wp.steps_for(self.t_steps_all)
+                s_n = wp.steps_for(self.s_steps_all)
+                # disjoint even/odd salts keep the teacher and student
+                # streams apart; seeds fold client/cluster ids, so a
+                # client's stream does not depend on its wave
+                tp_s, ts_s, sp_s, sp_local, _ss, t_loss, s_loss = \
+                    self.round_fn(
+                        tp_s, ts_s, sp_s, ss_s, tx, ty, t_n, sx, sy, s_n,
+                        self._teacher_keys(2 * rnd, wp),
+                        self._student_keys(2 * rnd + 1, wp),
+                        wp.sync_matrix(),
+                        np.ascontiguousarray(row[w * ws:(w + 1) * ws]))
+                # the wave's one host sync, inside the span it waits for
+                t_loss, s_loss = torch.stack([t_loss, s_loss]).tolist()
+                losses.append((t_loss, int((t_n > 0).sum()), s_loss,
+                               int((s_n > 0).sum())))
+            with perf.span("aggregate"):
+                tp_acc, ts_acc = self._scatter(tp_s, ts_s, wp, tp_acc,
+                                               ts_acc)
+                partials.append({k: v[0] for k, v in sp_s.items()})
+            if has_async:
+                # straggling lanes: their pre-merge students go to the
+                # buffer with their birth-round plan weight
+                for t in np.flatnonzero(wp.stragglers):
+                    self.buffer.push(AsyncUpdate(
+                        client=int(wp.slot_client[t]), birth=rnd,
+                        arrival=rnd + int(wp.delays[t]),
+                        weight=float(wp.slot_weight[t]),
+                        params=sh.take_rows(sp_local, int(t))))
+        self.tp_k, self.ts_k = tp_acc, ts_acc
+        t_loss, s_loss = _fold_losses(losses)
+        # one wave: its aggregate IS the cohort mean, untouched
+        sp0 = partials[0] if len(partials) == 1 else agg.fold_partials(
+            partials)
+        if not has_async:
+            self.sp_global = sp0
+        elif plan.on_time.any():
+            acc = sp0
+            for u, sc in zip(arrivals, scales):
+                acc = agg.add_scaled(acc, u.params, sc)
+            self.sp_global = acc
+        elif arrivals:
+            self.sp_global = merge_arrivals_only(arrivals,
+                                                 cfg.staleness_decay)
+        # else: an all-straggler round with an empty buffer — the student
+        # holds (sp0 was the zero-row aggregate)
         return {"teacher_loss": t_loss, "student_loss": s_loss}
 
     def eval(self):
@@ -561,7 +718,6 @@ class ShardedClusteredKD(_ClusteredKDBase):
         self.ts_k = convert.adam_from_jax(arrays["t_opts"], device=dev,
                                           stacked=True)
         self._restore_labels(arrays)
-        self._restage_teacher_feed()
 
     def history_extras(self):
         return {"num_clusters": self.K, "pack": self.scheduler.pack,

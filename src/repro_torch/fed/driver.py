@@ -1,6 +1,5 @@
 """RoundDriver: the federated round skeleton of the port (the port of
-``repro.fed.driver`` for the loop engine, and for checkpoints on both
-engines).
+``repro.fed.driver``).
 
 It owns, for every algorithm:
 
@@ -31,7 +30,14 @@ It owns, for every algorithm:
   staleness is at most ``cfg.max_staleness`` (the rest are dropped and
   counted).  Buffer contents ride the checkpoint: the params as the
   ``_async_buffer`` list beside the strategy's arrays, the records in the
-  meta JSON.
+  meta JSON;
+- the runtime guards (``cfg.guards``, ``repro_torch.guards``): from the
+  third round after the start on, a round that builds a kernel or shows
+  one a new shape raises ``GuardError``; ``"jitter"`` arms the race
+  harness for the run;
+- the ``perf`` spans ``round_total``, ``eval`` and ``checkpoint`` (the
+  strategies add ``stage``, ``compute`` and ``aggregate``) and one
+  ``perf.end_round()`` a round.
 
 The checkpoint holds what the JAX package's holds, under the same keys and
 in its layouts (``repro_torch.convert``), and the fingerprint has the same
@@ -41,11 +47,12 @@ checkpoint.  ``round_seconds``, which a JAX history lacks, is padded with
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
 
-from repro_torch import convert
+from repro_torch import convert, guards, perf
 from repro_torch.data.pipeline import ClientStore, make_client_shards
 from repro_torch.fed import fedstate
 from repro_torch.fed.lifecycle import ClientLifecycle
@@ -233,46 +240,82 @@ class RoundDriver:
         if cfg.ckpt_dir and cfg.async_ckpt:
             self.writer = fedstate.AsyncCheckpointWriter(
                 cfg.ckpt_dir, keep_last=cfg.ckpt_keep)
+        # Runtime guards (``guards.py``).  The first rounds are warm-in:
+        # kernel builds and first plans, the first eval, the first
+        # re-clustering at a new roster size.  From ``guard_from`` on, every
+        # round runs its plan/stage/compute path inside
+        # ``no_implicit_transfers`` and must finish (eval, checkpoint and
+        # any semi-async merge included) with no kernel built or shown a
+        # new shape.
+        guard_from = None
+        if cfg.guards:
+            guards.install()
+            guard_from = start_round + 3
+            if cfg.guards == "jitter":
+                # race harness: deterministic seeded sleeps at every
+                # thread handoff; the history must not change by a bit
+                guards.enable_jitter(cfg.seed)
         try:
             for rnd in range(start_round + 1, cfg.rounds + 1):
+                guarded = guard_from is not None and rnd >= guard_from
+                compile_base = guards.compile_count() if guarded else 0
                 t0 = time.perf_counter()
-                metrics = {}
-                if lc is not None:
-                    ev = lc.event(rnd)
-                    if ev.recluster:
-                        metrics.update(alg.apply_lifecycle(ev) or {})
-                        if alg.labels is not None:
-                            history["labels_history"].append(
-                                [rnd, [int(l) for l in alg.labels]])
-                        if self.progress and ev.changed:
-                            print(f"  round {rnd:3d}  lifecycle: "
-                                  f"+{len(ev.joins)} joined, "
-                                  f"-{len(ev.leaves)} left, "
-                                  f"{int(ev.active.sum())} active")
-                plan = alg.scheduler.plan(rnd)
-                if cfg.prefetch and rnd < cfg.rounds and (
-                        lc is None or not lc.event(rnd + 1).recluster):
-                    # stage round N+1's slot data while round N computes
-                    # (plans are pure functions of (seed, round); an event
-                    # round's plan exists only after apply_lifecycle)
-                    alg.prefetch(alg.scheduler.plan(rnd + 1))
-                if self.buffer is not None:
-                    arrivals, dropped = self.buffer.pop_due(rnd)
-                    alg.arrivals = tuple(arrivals)
-                    metrics.update(alg.run_round(plan, rnd))
-                    alg.arrivals = ()
-                    metrics["stragglers"] = int(plan.stragglers.sum())
-                    metrics["stale_merged"] = len(arrivals)
-                    metrics["stale_dropped"] = dropped
-                    metrics["buffered"] = len(self.buffer)
-                else:
-                    metrics.update(alg.run_round(plan, rnd))
-                self._append_metrics(history, metrics)
-                history["participants"].append(int(plan.active.sum()))
-                self._record(history, rnd)
+                with perf.span("round_total"):
+                    metrics = {}
+                    if lc is not None:
+                        ev = lc.event(rnd)
+                        if ev.recluster:
+                            metrics.update(alg.apply_lifecycle(ev) or {})
+                            if alg.labels is not None:
+                                history["labels_history"].append(
+                                    [rnd, [int(l) for l in alg.labels]])
+                            if self.progress and ev.changed:
+                                print(f"  round {rnd:3d}  lifecycle: "
+                                      f"+{len(ev.joins)} joined, "
+                                      f"-{len(ev.leaves)} left, "
+                                      f"{int(ev.active.sum())} active")
+                    hot = (guards.no_implicit_transfers() if guarded
+                           else contextlib.nullcontext())
+                    with hot:
+                        plan = alg.scheduler.plan(rnd)
+                        if cfg.prefetch and rnd < cfg.rounds and (
+                                lc is None
+                                or not lc.event(rnd + 1).recluster):
+                            # stage round N+1's first wave while round N
+                            # computes (plans are pure functions of (seed,
+                            # round); an event round's plan exists only
+                            # after apply_lifecycle)
+                            alg.prefetch(alg.scheduler.plan(rnd + 1))
+                        if self.buffer is not None:
+                            arrivals, dropped = self.buffer.pop_due(rnd)
+                            alg.arrivals = tuple(arrivals)
+                            metrics.update(alg.run_round(plan, rnd))
+                            alg.arrivals = ()
+                            metrics["stragglers"] = int(plan.stragglers.sum())
+                            metrics["stale_merged"] = len(arrivals)
+                            metrics["stale_dropped"] = dropped
+                            metrics["buffered"] = len(self.buffer)
+                        else:
+                            metrics.update(alg.run_round(plan, rnd))
+                    self._append_metrics(history, metrics)
+                    history["participants"].append(int(plan.active.sum()))
+                with perf.span("eval"):
+                    self._record(history, rnd)
                 history["round_seconds"].append(time.perf_counter() - t0)
-                self._save(history, fp, rnd)
+                with perf.span("checkpoint"):
+                    self._save(history, fp, rnd)
+                perf.end_round()
+                if guard_from is not None and self.buffer is not None \
+                        and rnd == start_round + 1:
+                    # warm-in: the arrival fold's first merge (kernel build,
+                    # plan) happens here, not in the guarded rounds
+                    alg.warm_async_merge()
+                if guarded:
+                    guards.assert_no_new_compiles(compile_base,
+                                                  f"round {rnd}")
         finally:
+            if cfg.guards == "jitter":
+                guards.disable_jitter()
             if self.writer is not None:
                 # drain pending writes and raise a writer error, on an
                 # exception too: a killed run leaves only complete

@@ -33,6 +33,7 @@ from typing import Any, Optional
 import numpy as np
 
 from repro_torch import checkpoint as ckpt
+from repro_torch import guards, perf
 
 _ROUND_RE = re.compile(r"^round_(\d+)\.npz$")
 
@@ -114,7 +115,10 @@ class AsyncCheckpointWriter:
       tensor before the worker reads it.
     - A failed write parks its exception, which the next ``submit``,
       ``flush`` or ``close`` raises: a run cannot silently stop
-      checkpointing."""
+      checkpointing.
+    - The worker's write is the ``checkpoint`` span of the round that
+      submitted it (``perf.round_token``), and the ``ckpt-submit`` and
+      ``ckpt-worker`` jitter points stretch both sides of the handoff."""
 
     def __init__(self, ckpt_dir, *, keep_last: Optional[int] = None,
                  max_pending: int = 2):
@@ -131,13 +135,19 @@ class AsyncCheckpointWriter:
     def _worker(self):
         while True:
             item = self._q.get()
+            guards.jitter_point("ckpt-worker")
             try:
                 if item is None:         # close() sentinel
                     return
+                state, token = item
                 with self._lock:
                     failed = self._error is not None
                 if not failed:           # after an error, drain unwritten
-                    save_round(self.ckpt_dir, item, keep_last=self.keep_last)
+                    # runs here, possibly rounds after the submitting round
+                    # closed its bucket: the token routes the span back
+                    with perf.span("checkpoint", round_id=token):
+                        save_round(self.ckpt_dir, state,
+                                   keep_last=self.keep_last)
             except BaseException as e:
                 with self._lock:
                     self._error = e
@@ -158,10 +168,12 @@ class AsyncCheckpointWriter:
         if self._closed:
             raise RuntimeError("submit() after close()")
         self._raise_pending()
-        self._q.put(dataclasses.replace(
+        state = dataclasses.replace(
             state, history=json_safe(state.history),
             meta=json_safe(state.meta),
-            buffer_meta=json_safe(state.buffer_meta)))
+            buffer_meta=json_safe(state.buffer_meta))
+        guards.jitter_point("ckpt-submit")
+        self._q.put((state, perf.round_token()))
 
     def flush(self) -> None:
         """Barrier: every submitted snapshot is on disk (or has raised)."""

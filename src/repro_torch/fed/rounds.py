@@ -2,17 +2,16 @@
 ``repro.fed.rounds.FedConfig`` with every field and every validation) and
 ``run_federated`` (one call = one ``RoundDriver`` run on a torch device).
 
-The port runs every algorithm on the loop engine and, one wave of
-synchronous rounds, every algorithm but FL+HC on the packed engine
-(``engine="sharded"``): the clustered-KD algorithms (``fedsikd`` and the
-``random`` ablation) and the baselines (``fedavg``, ``fedprox``; FL+HC is
-loop-only, as in JAX).  On the loop engine it runs the runtime knobs too:
-DP-noised statistics (``dp_noise``), the client lifecycle
-(``join_schedule``, ``leave_rate``, ``recluster_every``), semi-async
-rounds (``async_mode``) and checkpoints (``ckpt_dir``, ``resume``,
-``async_ckpt``); on the packed engine ``dp_noise`` and checkpoints.  Every
-knob it does not port raises ``NotImplementedError`` naming its ROADMAP.md
-item, before any work starts (``unported_knobs``).
+The port runs every algorithm on the loop engine and every algorithm but
+FL+HC on the packed engine (``engine="sharded"``): the clustered-KD
+algorithms (``fedsikd`` and the ``random`` ablation) and the baselines
+(``fedavg``, ``fedprox``; FL+HC is loop-only, as in JAX).  Both engines run
+the runtime knobs the JAX package runs on them: DP-noised statistics
+(``dp_noise``), the client lifecycle (``join_schedule``, ``leave_rate``,
+``recluster_every``), semi-async rounds (``async_mode``) and checkpoints
+(``ckpt_dir``, ``resume``, ``async_ckpt``); the packed engine also runs
+wave-scheduled rounds (``n_devices``, ``waves``), a virtual client
+universe (``universe``) and the runtime guards (``guards``).
 """
 from __future__ import annotations
 
@@ -345,34 +344,6 @@ class FedConfig:
             or self.recluster_every > 0
 
 
-def unported_knobs(cfg: FedConfig) -> list[str]:
-    """The knobs of ``cfg`` this slice of the port does not run yet, each
-    with the ROADMAP.md Queue 1 item that ports it: the packed engine's
-    waves, universe, guards, async rounds and client lifecycle."""
-    out = []
-    if cfg.engine == "sharded":
-        if cfg.universe is not None:
-            out.append("universe (virtual client universe on the packed "
-                       "engine: ROADMAP Queue 1 item 9)")
-        cohort = cfg.clients_per_round or cfg.total_clients
-        _, _, n_waves = schedule.fed_wave_layout(
-            cohort, pack=cfg.pack, n_devices=cfg.n_devices, waves=cfg.waves)
-        if n_waves > 1:
-            out.append(f"waves/n_devices giving {n_waves} waves "
-                       "(wave-scheduled rounds: ROADMAP Queue 1 item 9)")
-        if cfg.guards:
-            out.append("guards (runtime guards on the packed engine: "
-                       "ROADMAP Queue 1 item 9)")
-        if cfg.async_mode:
-            out.append("async_mode on the packed engine (semi-async packed "
-                       "rounds: ROADMAP Queue 1 item 9)")
-        if cfg.lifecycle_enabled:
-            out.append("join_schedule/leave_rate/recluster_every on the "
-                       "packed engine (packed client lifecycle: ROADMAP "
-                       "Queue 1 item 9)")
-    return out
-
-
 def resolve_device(device) -> torch.device:
     """The torch device a run uses.  A CUDA device that is not there raises:
     an entry point never carries on on the CPU unless asked to."""
@@ -389,10 +360,6 @@ def run_federated(ds: Dataset, cfg: FedConfig, *, device="cuda",
     """Runs ``cfg.rounds`` federated rounds on ``device``; returns per-round
     test metrics in the history schema of ``repro.fed.rounds.run_federated``.
     """
-    missing = unported_knobs(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported to repro_torch yet: " + "; ".join(missing))
     dev = resolve_device(device)
     from repro_torch.fed.algorithms import make_algorithm
     from repro_torch.fed.driver import RoundDriver

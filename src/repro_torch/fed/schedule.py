@@ -88,7 +88,8 @@ stream; the regression test asserts pairwise disjointness of all six
 streams across an adversarial (seed, round, client) grid, including
 values that equal the salts themselves.
 
-A copy of ``repro.fed.schedule`` with ``fed_wave_layout`` inlined: plans
+A copy of ``repro.fed.schedule`` with ``fed_mesh_layout`` and
+``fed_wave_layout`` inlined: plans
 must match the JAX package's bit for bit, so both engines train the same
 clients with the same weights.
 """
@@ -112,6 +113,23 @@ SALT_LEAVE = 0x1F          # owned by fed/lifecycle.py
 SALT_SPEED = 0x5E
 SALT_WARMUP = 0xA0
 SALT_BATCH = 0xB0          # owned by data/pipeline.py (per-epoch batch order)
+
+
+def fed_mesh_layout(n_participants: int, *, pack: int = 1,
+                    n_devices: int | None = None) -> tuple[int, int]:
+    """Client-packed layout: ``(n_devices, n_slots)`` hosting
+    ``n_participants`` clients with ``pack`` lanes a device, ``n_slots =
+    n_devices * pack``.  A copy of ``repro.launch.mesh.fed_mesh_layout``;
+    on one card the device count only numbers the slots."""
+    if pack < 1:
+        raise ValueError(f"pack must be >= 1, got {pack}")
+    if n_devices is None:
+        n_devices = math.ceil(n_participants / pack)
+    if n_devices * pack < n_participants:
+        raise ValueError(
+            f"{n_devices} devices x pack={pack} = {n_devices * pack} slots "
+            f"cannot host {n_participants} participants")
+    return n_devices, n_devices * pack
 
 
 def fed_wave_layout(n_participants: int, *, pack: int = 1,

@@ -1,7 +1,6 @@
 """Client-packed federated runtime on one card: the port of
-``repro.fed.sharded`` for one wave a round (the FedSiKD round programs,
-the FedAvg/FedProx round program and the staging helpers the packed
-strategies call).
+``repro.fed.sharded`` (the FedSiKD round programs, the FedAvg/FedProx round
+program and the staging helpers the packed strategies call).
 
 The JAX package hosts ``C = devices x pack`` client lanes on a device mesh
 and ``vmap``s each local step over the lanes inside ``shard_map``.  On one
@@ -21,9 +20,13 @@ lane axis is a batch axis written out:
   ``torch.where(live, new, old)`` over params AND optimizer state, as
   ``_masked_scan_steps`` does in JAX;
 - ``jax.lax.scan`` is a Python loop that stops at the longest budget of the
-  round (later steps would be frozen on every lane), and the losses stay on
-  the device: a round syncs with the host once, when the caller reads its
-  two loss scalars.
+  wave (later steps would be frozen on every lane), and the losses stay on
+  the device: a wave syncs with the host once, when the caller reads its
+  loss scalars.
+
+A round's cohort may span several waves of ``S`` slots (``RoundPlan.wave``);
+every wave runs the same fixed-shape program, and ``WaveStager`` stages
+wave ``w + 1``'s data while wave ``w`` computes.
 
 Step budgets (``n_steps``) are host numpy arrays, as the strategies build
 them; random streams are integer seeds (``repro_torch.rng``) read only by
@@ -37,13 +40,14 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.func import vmap
 
-from repro_torch import rng
+from repro_torch import guards, perf, rng
 from repro_torch.core import cluster_collectives as cc
 from repro_torch.core.distill import distillation_loss, softmax_cross_entropy
 from repro_torch.fed.schedule import RoundPlan
@@ -113,28 +117,41 @@ def stage_on_slots(plan: RoundPlan, *arrays, device, row_maps=None):
 
 
 class WaveStager:
-    """Stages this round's slot assignment, with at most one prefetch in
-    flight (the port of the JAX ``WaveStager`` for one wave a round: one
-    staged entry and one pending prefetch, the shape of the JAX
-    ``SlotStager``; the LRU over several waves comes with multi-wave
-    rounds, ROADMAP Queue 1 item 9).
+    """Stages wave assignments: an insertion-ordered LRU of staged waves
+    plus a dict of in-flight prefetches, so wave ``w+1``'s host gather and
+    copy run on a background thread while wave ``w`` computes, and the next
+    round's wave-0 prefetch coexists with this round's waves.
 
     ``stage(plan)`` returns the (S, ...) device tensors of ``plan``'s slot
-    assignment: the staged ones if the assignment is unchanged, else an
-    adopted prefetch, else a synchronous ``stage_on_slots``.
-    ``prefetch(plan)`` starts the host gather on a background thread; on a
-    CUDA device its copies run on a side stream and end with a recorded
-    event, and ``stage`` makes the current (compute) stream wait on that
-    event before the tensors are read.  A prefetch that ``stage`` does not
-    ask for (a mispredicted plan) is never adopted: it stays pending until
-    the next ``prefetch`` replaces it.  With ``participation="full"`` the
-    assignment never changes, so the data is uploaded once per run."""
+    assignment: a staged entry (an LRU hit), else an adopted prefetch, else
+    a synchronous ``stage_on_slots``.  ``capacity`` bounds both the staged
+    LRU and the pending dict; size it ``n_waves + 1`` so a whole round's
+    waves and the next round's wave-0 prefetch fit (repeat assignments, as
+    ``participation="full"`` gives, then upload once per run).  A
+    mispredicted prefetch is never a source of truth: it stays pending
+    until evicted by later prefetches, and a ``stage`` of another key
+    gathers synchronously.
 
-    def __init__(self, *arrays, device, row_maps: Optional[Sequence] = None):
+    On a CUDA device a prefetch's copies run on a side stream and end with
+    a recorded event; adopting it makes the current (compute) stream wait
+    on that event and marks every tensor with ``record_stream`` on it, so
+    the caching allocator keeps a staged entry's memory until the compute
+    stream is done with it, even if the LRU evicts the entry first.
+
+    Overlap accounting (``perf``): adopting a prefetch records its
+    background gather time that ran hidden (``stage_hidden``) and the
+    residual join wait (``stage_wait``); a cold or mispredicted wave records
+    its whole synchronous gather as ``stage_wait``.  The ``wave-stage``,
+    ``wave-prefetch`` and ``wave-evict`` jitter points let the race harness
+    stretch each handoff."""
+
+    def __init__(self, *arrays, device, row_maps: Optional[Sequence] = None,
+                 capacity: int = 2):
         self.arrays, self.row_maps = arrays, row_maps
         self.device = torch.device(device)
-        self._key = self._staged = None
-        self._pending = None                      # (key, thread, box)
+        self.capacity = max(2, int(capacity))
+        self._staged: dict[bytes, tuple] = {}     # insertion-ordered LRU
+        self._pending: dict[bytes, tuple] = {}    # key -> (thread, box)
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
 
@@ -142,57 +159,75 @@ class WaveStager:
         return stage_on_slots(plan, *self.arrays, device=self.device,
                               row_maps=self.row_maps)
 
+    def _put(self, key: bytes, staged) -> None:
+        self._staged[key] = staged
+        while len(self._staged) > self.capacity:
+            self._staged.pop(next(iter(self._staged)))
+
     def stage(self, plan: RoundPlan):
         key = plan.slot_client.tobytes()
-        if key == self._key:
-            return self._staged
-        staged = self._take_pending(key)
-        if staged is None:                # none, or its gather failed: the
-            staged = self._gather(plan)   # synchronous one re-raises
-        self._key, self._staged = key, staged
-        return staged
-
-    def _take_pending(self, key: bytes):
-        if self._pending is None or self._pending[0] != key:
-            return None
-        _, th, box = self._pending
-        self._pending = None
-        th.join()
-        staged = box.get("staged")
-        if staged is not None and self._side is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(box["event"])
-            for t in staged:                      # allocated on the side
-                t.record_stream(cur)              # stream, read on this one
+        hit = self._staged.pop(key, None)
+        if hit is not None:
+            self._put(key, hit)                   # LRU refresh
+            return hit
+        pend = self._pending.pop(key, None)
+        if pend is not None:
+            th, box = pend
+            guards.jitter_point("wave-stage")
+            t0 = time.perf_counter()
+            th.join()
+            wait = time.perf_counter() - t0
+            staged = box.get("staged")
+            if staged is not None:
+                if self._side is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(box["event"])
+                    for t in staged:              # allocated on the side
+                        t.record_stream(cur)      # stream, read on this one
+                perf.add("stage_hidden", max(0.0, box["dt"] - wait))
+                perf.add("stage_wait", wait)
+                self._put(key, staged)
+                return staged
+            # the background gather failed: the synchronous one re-raises
+        t0 = time.perf_counter()
+        staged = self._gather(plan)
+        perf.add("stage_wait", time.perf_counter() - t0)
+        self._put(key, staged)
         return staged
 
     def prefetch(self, plan: RoundPlan):
         """Begin staging ``plan``'s slot assignment on a background thread
-        (a no-op if it is already staged or in flight); an earlier pending
-        prefetch is dropped."""
+        (a no-op if it is already staged or in flight)."""
         key = plan.slot_client.tobytes()
-        if key == self._key or (self._pending is not None
-                                and self._pending[0] == key):
+        if key in self._staged or key in self._pending:
             return
         box: dict = {}
 
         def work():
+            guards.jitter_point("wave-prefetch")
+            t0 = time.perf_counter()
             try:
                 if self._side is None:
                     box["staged"] = self._gather(plan)
-                    return
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(self._side):
-                    staged = self._gather(plan)
-                    event = torch.cuda.Event()
-                    event.record()
-                box["event"], box["staged"] = event, staged
+                else:
+                    with torch.cuda.device(self.device), \
+                            torch.cuda.stream(self._side):
+                        staged = self._gather(plan)
+                        event = torch.cuda.Event()
+                        event.record()
+                    box["event"], box["staged"] = event, staged
             except Exception as e:  # raised again by the synchronous retry
                 box["error"] = e
+            box["dt"] = time.perf_counter() - t0
 
         th = threading.Thread(target=work, daemon=True, name="wave-prefetch")
         th.start()
-        self._pending = (key, th, box)
+        self._pending[key] = (th, box)
+        # eviction happens on this (the driver's) thread only: an evicted
+        # worker finishes into its own box and is never adopted
+        guards.jitter_point("wave-evict")
+        while len(self._pending) > self.capacity:
+            self._pending.pop(next(iter(self._pending)))
 
 
 # ------------------------------------------------------------ slot streams
@@ -212,6 +247,13 @@ def slot_cluster_keys(base: int, plan: RoundPlan) -> np.ndarray:
     dropout masks keep teacher replicas in sync between syncs)."""
     kidx = np.where(plan.active, plan.slot_cluster, 0)
     return np.asarray([rng.fold_seed(base, int(k)) for k in kidx], np.int64)
+
+
+def take_rows(tree: dict, idx: int) -> dict:
+    """Lane ``idx`` of every (S, ...) leaf as a COPY: a straggler's update
+    waits in the staleness buffer for rounds, and a view would pin the
+    whole slot stack (S times the memory) and share storage with it."""
+    return {k: v[idx].clone() for k, v in tree.items()}
 
 
 # ------------------------------------------------------------ lane helpers

@@ -516,6 +516,61 @@ def test_packed_run_on_the_card_matches_cpu(dev, monkeypatch):
         assert gaps[key] <= 1e-2, (key, h[key], want[key])
 
 
+def test_two_wave_packed_run_on_the_card_matches_cpu(dev, monkeypatch):
+    """The small packed run streamed through 3 slots in 2 waves, on the card
+    against the CPU: every KD launch on the rows kernels, as many as the
+    waves' longest student budgets (read from the run's plans by
+    ``chip_smoke._scale_run``), and the bounds of the one-wave test
+    above."""
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.fed.rounds import FedConfig, run_federated
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ds = load_dataset("mnist", small=True)
+    cfg = FedConfig(engine="sharded", pack=3, n_devices=1, **SMALL_RUN)
+    h, _, counts, want, breakdown = chip_smoke._scale_run(ds, cfg)
+    assert want["waves"] == 2 * cfg.rounds
+    rows = {"rows": want["kd"], "stream": 0}
+    assert counts["kd_variants"] == {"fwd": rows, "bwd": rows}
+    assert counts["kmeans_assign"] == 51 and counts["fused_merge"] == 0
+    assert len(breakdown["compute"]) == cfg.rounds
+    cpu = run_federated(ds, cfg, device="cpu")
+    assert np.max(np.abs(np.subtract(h["acc"], cpu["acc"]))) <= 0.02
+    for key in ("loss", "teacher_loss", "student_loss"):
+        np.testing.assert_allclose(h[key], cpu[key], rtol=1e-2, err_msg=key)
+
+
+@pytest.mark.parametrize("algorithm", ["fedavg", "fedsikd"])
+def test_packed_round_of_arrivals_only_is_one_merge(dev, monkeypatch,
+                                                    algorithm):
+    """Packed async rounds on the card (2 waves of one slot, two sampled
+    clients a round, 90 % stragglers): round 3's two participants both
+    straggle while two late updates arrive, so it merges the arrivals alone
+    — exactly one ``leaves`` launch in the run, at s >= 1; rounds with an
+    on-time lane contract it in the program and launch no merge.  The plan
+    keys equal the CPU run's, the metrics within 2 points and 1e-2."""
+    from repro_torch.data.synthetic import load_dataset
+    from repro_torch.fed.rounds import FedConfig, run_federated
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ds = load_dataset("mnist", small=True)
+    cfg = FedConfig(algorithm=algorithm, engine="sharded", num_clients=6,
+                    alpha=1.0, rounds=3, batch_size=32, num_clusters=2,
+                    teacher_warmup_epochs=1, pack=1, n_devices=1,
+                    participation="uniform", clients_per_round=2,
+                    async_mode=True, straggler_frac=0.9, max_staleness=2)
+    reset_launches()
+    h = run_federated(ds, cfg, device=dev)
+    counts, stale = launch_counts(), fm.fused_merge.stale_launches
+    cpu = run_federated(ds, cfg, device="cpu")
+    for key in ("participants", "stragglers", "stale_merged",
+                "stale_dropped", "buffered"):
+        assert h[key] == cpu[key], key
+    assert chip_smoke._arrivals_only_rounds(h) == 1
+    assert counts["fused_merge"] == 1 and stale == 1
+    assert fm.fused_merge.variant_launches == {"leaf": 0, "leaves": 1}
+    assert np.max(np.abs(np.subtract(h["acc"], cpu["acc"]))) <= 0.02
+    np.testing.assert_allclose(h["loss"], cpu["loss"], rtol=1e-2)
+
+
 @pytest.mark.parametrize("shape", chip_smoke.FA_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, shape, dtype):

@@ -110,6 +110,10 @@ def _inject_into_port(monkeypatch, kw, seen):
     if alg in ("fedsikd", "random"):
         labels = seen["labels"]
         roster = labels[labels >= 0]
+        if kw.get("universe") is not None:
+            # a universe clusters its base pool, whose labels are the
+            # first ``num_clients`` virtual clients' (``row_of = v % n``)
+            roster = roster[:kw["num_clients"]]
 
         def injected_kmeans(seed, feats, k, iters=50):
             assert feats.shape[0] == len(roster)

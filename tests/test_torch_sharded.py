@@ -18,9 +18,9 @@ Pallas interpret mode).
   clusters and initial params (torch cannot draw ``jax.random``'s bits):
   accuracy within 1 point each round, losses within 1e-4 relative.
 - ``pack`` changes no result; a HAR run learns; the stager adopts a
-  matching prefetch and never a mispredicted one; the knobs the packed
-  engine does not port raise naming their ROADMAP item, and its
-  checkpoints match the JAX package's.
+  matching prefetch and never a mispredicted one; the packed runtime knobs
+  (universe, waves, guards, async rounds, lifecycle, DP noise,
+  checkpoints) match the JAX package's runs.
 """
 import dataclasses
 
@@ -418,7 +418,7 @@ def test_wave_stager_adopts_a_matching_prefetch_only(monkeypatch):
                             plan.slot_client.tolist()) or real(plan, *arr,
                                                                **kw))
     stager.prefetch(a)
-    stager._pending[1].join(timeout=30)
+    stager._pending[a.slot_client.tobytes()][0].join(timeout=30)
     staged_a = stager.stage(a)                     # adopted: no new gather
     assert gathers == [a.slot_client.tolist()]
     cid = np.where(a.active, a.slot_client, 0)
@@ -426,29 +426,32 @@ def test_wave_stager_adopts_a_matching_prefetch_only(monkeypatch):
     stager.prefetch(a)                             # already staged: no-op
     assert gathers == [a.slot_client.tolist()]
     stager.prefetch(b)                             # mispredicted below
-    stager._pending[1].join(timeout=30)
+    stager._pending[b.slot_client.tobytes()][0].join(timeout=30)
     c = next(p for p in plans if p.slot_client.tolist()
              not in (a.slot_client.tolist(), b.slot_client.tolist()))
     staged_c = stager.stage(c)                     # gathered synchronously
     assert gathers[-1] == c.slot_client.tolist() and len(gathers) == 3
-    assert stager._pending[0] == b.slot_client.tobytes()  # not adopted
+    assert list(stager._pending) == [b.slot_client.tobytes()]  # not adopted
     np.testing.assert_array_equal(
         staged_c[0].numpy(), xs[np.where(c.active, c.slot_client, 0)])
 
 
-# ------------------------------------------------------ knobs not ported
+# ------------------------------------------------ the packed runtime knobs
 @pytest.mark.parametrize("knob", [
-    {"universe": 12},
-    {"waves": 2},
-    {"n_devices": 2, "pack": 1},
-    {"guards": True},
-    {"async_mode": True},
+    {"universe": 12, "pack": 12},
+    {"waves": 2, "pack": 3},
+    {"n_devices": 1, "pack": 2},
+    {"guards": True, "rounds": 3},
+    {"async_mode": True, "straggler_frac": 0.5, "rounds": 3},
     {"join_schedule": ((2, 1),)},
 ], ids=lambda k: ",".join(k))
-def test_packed_unported_knobs_raise(knob):
-    cfg = FedConfig(**{**PARITY, "pack": 1, **knob})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        run_federated(load_dataset("mnist", small=True), cfg, device="cpu")
+def test_packed_knob_matches_jax(knob, monkeypatch, tmp_path):
+    """The knobs the packed engine runs since the wave slice, each against
+    JAX's packed run on one device (``test_torch_runtime.run_both``): a
+    virtual universe, two and three waves, the guards, async rounds and a
+    join."""
+    h, h_jax = run_both({**PARITY, **knob}, monkeypatch, tmp_path)
+    assert h["pack"] == knob.get("pack", PARITY["pack"])
 
 
 @pytest.mark.parametrize("knob", [
