@@ -28,7 +28,16 @@ the full-width, full-depth qwen2.5-3b in bf16 (random weights from a seed):
 a prefill of 2 x 4096 tokens and 32 greedy decode steps through
 ``make_prefill_step`` / ``make_decode_step``, with every attention in a
 flash-attention kernel (the bf16 prefill on the tensor-core kernel, every
-decode step on the decode kernel). It checks that each path went through
+decode step on the decode kernel), and glm4-9b, minitron-8b and
+internvl2-2b the same way at 1 x 1024 tokens and 8 steps; then trains the
+full qwen2.5-3b (phase ``lm_train``: ``make_train_step`` on 2 x 2048
+tokens at accum 1 and 2, the plain training attention, no port kernel,
+and a float32 2-layer twin's step held to the same step on the CPU) and
+runs the paper's FedSiKD step at LLM scale (phase ``lm_distill``:
+``make_fedsikd_distill_step`` with the full qwen2.5-3b as teacher and 2
+students of 18 layers, on each loss path: the teacher's forward on the
+flash kernel, the students' loss in one call of the KD kernels, or none
+when vocab-chunked). It checks that each path went through
 its kernels (the loop engine's merge one multi-leaf launch a round, the
 clustering step's 255 k-means calls on the split kernel, every KD launch of
 the fused distill step and the packed engine on the rows kernels, FedAvg's
@@ -36,7 +45,11 @@ and FedProx's merge one launch a round and FL+HC's one a cluster, the
 join-and-share runs' merge one launch a round that merges, late updates at
 s >= 1 among them, and 51 k-means launches a re-clustering; the scale
 runs' KD launches one a step of each wave's longest budget and their merges
-one a round that merges arrivals alone), holds
+one a round that merges arrivals alone; every served model's flash
+launches, layers on ``tensor_core`` and layers x steps on ``decode``; no
+flash or KD launch in a train step; one ``stream`` KD forward and backward
+a distill step with materialised logits, none when vocab-chunked, and the
+teacher's layers of ``tensor_core`` launches a teacher forward), holds
 each packed engine's per-round accuracy and eval loss to its loop engine's
 and a float32 2-layer serve's decode logits to a full forward of the same
 tokens, times every kernel beside its bound, and prints one JSON object per
@@ -87,10 +100,11 @@ LOSS_RTOL_TO_LOOP = 1e-2
 # (T, V) of the KD checks, every regime of kernels/kd_softmax_kl.py::plan:
 # rows at the loop engine's and the packed path's shapes, stream at an LLM
 # vocabulary, at an odd V (rows not 16-byte aligned, a scalar tail), and
-# for fewer rows than SMs at the served model's vocabulary and GPT-2's;
-# each in float32 and bf16
+# for fewer rows than SMs at the served model's vocabulary and GPT-2's,
+# and the LLM distillation step's D x T = 2 x 1024 rows at that
+# vocabulary; each in float32 and bf16
 KD_CASES = [(64, 10), (PATH_ROWS, 10), (2048, 32000), (300, 32003),
-            (16, 151936), (5, 50257)]
+            (16, 151936), (5, 50257), (2048, 151936)]
 # (loss and stats rtol, ds rtol and atol) of the KD kernels against their
 # plain versions; the loss and stats take an atol of 10 x their rtol
 KD_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}
@@ -110,6 +124,34 @@ LM_SEED = 0
 # decode-vs-forward bound of the float32 2-layer consistency run (abs and
 # relative): the same function summed in other orders (split keys, T = 1)
 LM_CONSISTENCY_TOL = 1e-3
+# the other served models, each at full width and depth with random
+# weights: GQA groups of 16 (glm4-9b, 18.8 GB in bf16), vocab 256000 and
+# squared ReLU (minitron-8b), a 256-position VLM prefix (internvl2-2b); a
+# shorter request than qwen2.5-3b's to stay inside the run's time
+SERVE_MORE = ("glm4-9b", "minitron-8b", "internvl2-2b")
+SERVE_B, SERVE_PROMPT, SERVE_DECODE = 1, 1024, 8
+# lm_train: full qwen2.5-3b, TRAIN_STEPS steps at accum 1 then at accum 2,
+# on B x T tokens (T >= 2 * attn_block: the blocked training attention);
+# the float32 2-layer twin's card step is held to its CPU step per leaf at
+# TRAIN_PARAM_RTOL in the Frobenius norm: the first moments (0.1 x the
+# gradient) of every leaf and the params of every leaf that is not zero at
+# init (Adam turns rounding into steps of +-lr where a gradient is within
+# rounding of zero, so the max norm would hold rounding noise; a bias
+# that starts at zero is its update alone, -lr g / (|g| + eps), which
+# follows the rounding of g where |g| nears eps: its moment holds it), and
+# its accum-2 loss to its accum-1 loss at TRAIN_ACCUM_RTOL
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 2, 2048, 3, 1e-4
+TRAIN_PARAM_RTOL, TRAIN_ACCUM_RTOL = 1e-4, 1e-5
+# lm_distill: teacher full qwen2.5-3b, students its as_student() (18
+# layers), D replicas in clusters DISTILL_CLUSTERS, DISTILL_T tokens a
+# replica (the KD kernels see D x DISTILL_T rows); the chunked path's
+# vocab chunk; the chunked and naive losses against the default one at
+# KD_TOL's bf16 rtol
+DISTILL_CLUSTERS = (0, 0)
+DISTILL_T = 1024
+DISTILL_ROWS = len(DISTILL_CLUSTERS) * DISTILL_T
+DISTILL_CHUNK = 8192
+DISTILL_LR = 1e-4
 # (B, H, KVH, T, S, hd, window) of the flash-attention checks: the JAX
 # kernel test's shapes and windowed case, an unequal-pad causal shape, the
 # served model's prefill and its first and last decode step (T = 1 over the
@@ -120,7 +162,14 @@ FA_DECODE = [(LM_B, 16, 2, 1, LM_PROMPT + 1 + i, 128, 0)
 FA_SHAPES = [(1, 4, 4, 64, 64, 32, 0), (2, 8, 2, 128, 128, 64, 0),
              (1, 4, 2, 100, 100, 32, 0), (2, 4, 4, 64, 256, 64, 0),
              (1, 2, 2, 128, 128, 32, 32), (1, 4, 2, 64, 200, 64, 0),
-             FA_PREFILL, *FA_DECODE]
+             FA_PREFILL, *FA_DECODE,
+             # the other served models' prefills and glm4-9b's last decode
+             # step, and the distillation teacher's forward
+             (SERVE_B, 32, 2, SERVE_PROMPT, SERVE_PROMPT, 128, 0),
+             (SERVE_B, 32, 2, 1, SERVE_PROMPT + SERVE_DECODE, 128, 0),
+             (SERVE_B, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128, 0),
+             (SERVE_B, 16, 8, 256 + SERVE_PROMPT, 256 + SERVE_PROMPT, 128, 0),
+             (len(DISTILL_CLUSTERS), 16, 2, DISTILL_T, DISTILL_T, 128, 0)]
 # (rtol, atol) of the kernel against its plain version.  Both keep scores,
 # softmax weights and the product with V in float32 and round once, at the
 # output: float32 to 2e-5 (measured <= 1.7e-6); bf16 to one rounding of the
@@ -1384,19 +1433,23 @@ def _grow(cache, extra: int):
             for k, c in cache.items()}
 
 
-def _serve(cfg, params, prompt, n_decode: int):
-    """Prefill ``prompt`` (B, T), then ``n_decode`` greedy steps, through
-    the serving entry points.  Returns the logits of every step (the
-    prefill's last-token logits first), the generated tokens and the
-    prefill and decode seconds (host clock, each ending in a synchronize;
-    the decode loop itself never waits for the device)."""
+def _serve(cfg, params, prompt, n_decode: int, prefix=None):
+    """Prefill ``prompt`` (B, T) (after a VLM's ``prefix`` (B, P, d)), then
+    ``n_decode`` greedy steps, through the serving entry points.  Returns
+    the logits of every step (the prefill's last-token logits first), the
+    generated tokens and the prefill and decode seconds (host clock, each
+    ending in a synchronize; the decode loop itself never waits for the
+    device)."""
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    T = prompt.shape[1]
+    batch = {"tokens": prompt}
+    if prefix is not None:
+        batch["prefix"] = prefix
+    T = prompt.shape[1] + (0 if prefix is None else prefix.shape[1])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, cache = prefill(params, {"tokens": prompt})
+    last, cache = prefill(params, batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     cache = _grow(cache, n_decode)
@@ -1516,7 +1569,381 @@ def phase_lm_serve(smi):
                            f"{float(gap.max())} (limit {LM_CONSISTENCY_TOL})")
     del params, logits, full
     torch.cuda.empty_cache()
-    return counts, variants
+    more = {arch: _serve_other(arch, smi) for arch in SERVE_MORE}
+    return counts, variants, more
+
+
+def _serve_other(arch, smi):
+    """One of the other served models at full width and depth (random
+    weights, seed LM_SEED; a VLM's prefix standard normal from a seed):
+    SERVE_B x SERVE_PROMPT tokens and SERVE_DECODE greedy steps after a
+    warm-up serve.  Raises unless the flash kernels took exactly its
+    layers on ``tensor_core`` and layers x SERVE_DECODE on ``decode``, and
+    the logits are finite.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import DTYPES
+
+    cfg = get_config(arch)
+    params = tf.init_lm(LM_SEED, cfg, device=DEV)
+    r = np.random.default_rng(LM_SEED + 2)
+    prompt = torch.from_numpy(r.integers(0, cfg.vocab_size,
+                                         (SERVE_B, SERVE_PROMPT))).to(DEV)
+    prefix = None
+    if cfg.prefix_len:
+        prefix = torch.from_numpy(r.standard_normal(
+            (SERVE_B, cfg.prefix_len, cfg.d_model), np.float32)).to(
+                DEV, DTYPES[cfg.dtype])
+    _serve(cfg, params, prompt, 2, prefix)               # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, toks, pre_s, dec_s = _serve(cfg, params, prompt, SERVE_DECODE,
+                                        prefix)
+    counts = launch_counts()
+    variants = dict(fa.flash_attention.variant_launches)
+    finite = bool(torch.isfinite(torch.stack(logits).float()).all())
+    want = {"v1": 0, "tensor_core": cfg.num_layers,
+            "decode": cfg.num_layers * SERVE_DECODE}
+    emit({"phase": "lm_serve", "card": smi,
+          "config": f"{arch} full width and depth ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"head_dim {cfg.hd}, d_ff {cfg.d_ff} {cfg.activation}, vocab "
+          f"{cfg.vocab_size}, prefix {cfg.prefix_len}), {cfg.dtype}, random "
+          f"weights seed {LM_SEED}",
+          "params": cfg.param_count(), "batch": SERVE_B,
+          "prompt": SERVE_PROMPT, "prefix": cfg.prefix_len,
+          "decode_steps": SERVE_DECODE, "prefill_ms": pre_s * 1e3,
+          "prefill_tokens_per_s": SERVE_B * (SERVE_PROMPT + cfg.prefix_len)
+          / pre_s,
+          "decode_ms_per_token": dec_s * 1e3 / SERVE_DECODE,
+          "decode_tokens_per_s": SERVE_B * SERVE_DECODE / dec_s,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "generated_tokens_row0": toks[0].tolist(),
+          "logits_finite": finite, "launches": counts,
+          "flash_attention_variants": variants,
+          "expected_flash_attention_variants": want})
+    if variants != want or counts["flash_attention"] != sum(want.values()):
+        raise RuntimeError(f"{arch}: expected the flash_attention kernels "
+                           f"{want}, counted {variants} "
+                           f"({counts['flash_attention']} launches)")
+    if not finite:
+        raise RuntimeError(f"{arch}: the served model produced non-finite "
+                           "logits")
+    del params, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------- phase 4d
+def _lm_batch(cfg, shape, seed):
+    """Tokens (shape) and their next-token labels, on the card, from a
+    numpy seed (the labels are the tokens shifted by one: every one
+    valid)."""
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (*shape[:-1], shape[-1] + 1))
+    return {"tokens": torch.from_numpy(toks[..., :-1].copy()).to(DEV),
+            "labels": torch.from_numpy(toks[..., 1:].copy()).to(DEV)}
+
+
+def _to_cpu(tree):
+    """A copy on the CPU (a copy even of a CPU tensor)."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def _launches_of_ours():
+    """Every port kernel's launches, and the flash and KD ones by kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kd_softmax_kl as kd
+    from repro_torch.kernels import launch_counts
+    return {"launches": launch_counts(),
+            "flash_attention": dict(fa.flash_attention.variant_launches),
+            "kd_fwd": dict(kd.kd_loss_fwd.variant_launches),
+            "kd_bwd": dict(kd.kd_loss_bwd.variant_launches)}
+
+
+def phase_lm_train(smi):
+    """Training at LLM scale: full qwen2.5-3b in bf16 (random weights, seed
+    LM_SEED), TRAIN_STEPS steps of ``make_train_step`` at accum 1 then at
+    accum 2 on TRAIN_B x TRAIN_T tokens, one Adam state throughout.
+    Raises unless every loss is finite and the steps launch no flash and
+    no KD kernel (training attention is the plain jnp port).  Then a
+    float32 twin cut to 2 layers at full width takes one step on the card
+    and the same step on the CPU (the path the tests hold to JAX): params
+    per leaf within TRAIN_PARAM_RTOL, and its accum-2 loss within
+    TRAIN_ACCUM_RTOL of its accum-1 loss."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import flatten
+
+    cfg = get_config(LM_ARCH)
+    params = tf.init_lm(LM_SEED, cfg, device=DEV)
+    steps = {a: make_train_step(cfg, lr=TRAIN_LR, accum=a) for a in (1, 2)}
+    opt_state = steps[1][1].init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runs = []
+    for accum in (1, 2):
+        step = steps[accum][0]
+        for i in range(TRAIN_STEPS):
+            batch = _lm_batch(cfg, (TRAIN_B, TRAIN_T), 100 + len(runs))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            runs.append({"accum": accum, "step": i + 1, "loss": float(loss),
+                         "seconds": time.perf_counter() - t0})
+    launches = _launches_of_ours()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for r in runs:
+        r["tokens_per_s"] = TRAIN_B * TRAIN_T / r["seconds"]
+    steady = {a: statistics.mean(r["seconds"] for r in runs
+                                 if r["accum"] == a and r["step"] > 1)
+              for a in (1, 2)}
+    finite = all(math.isfinite(r["loss"]) for r in runs)
+    emit({"phase": "lm_train", "card": smi,
+          "config": f"{LM_ARCH} full width and depth ({cfg.num_layers} "
+          f"layers), {cfg.dtype}, remat {cfg.remat}, random weights seed "
+          f"{LM_SEED}, AdamW lr {TRAIN_LR} "
+          f"({'bf16' if cfg.param_count() > 8e9 else 'f32'} moments)",
+          "params": cfg.param_count(), "batch": TRAIN_B, "seq": TRAIN_T,
+          "attention": "sdpa_blocked" if TRAIN_T >= 2 * cfg.attn_block
+          else "_sdpa", "steps": runs,
+          "steady_s_per_step": steady,
+          "steady_tokens_per_s": {a: TRAIN_B * TRAIN_T / t
+                                  for a, t in steady.items()},
+          "peak_memory_gb": peak, "losses_finite": finite, **launches})
+    if not finite:
+        raise RuntimeError(f"lm_train: non-finite losses {runs}")
+    if (launches["launches"]["flash_attention"]
+            or launches["launches"]["kd_softmax_kl_fwd"]
+            or launches["launches"]["kd_softmax_kl_bwd"]):
+        raise RuntimeError(f"lm_train: a train step launched a flash or KD "
+                           f"kernel: {launches}")
+    del params, opt_state, steps
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p_card = tf.init_lm(LM_SEED, cfg32, device=DEV)
+    p_cpu = _to_cpu(p_card)
+    p_card2 = {k: v.clone() for k, v in flatten(p_card).items()}
+    zero_init = sorted(k for k, v in flatten(p_cpu).items() if not v.any())
+    batch = _lm_batch(cfg32, (TRAIN_B, TRAIN_T), 200)
+    out, mus = {}, {}
+    for name, params, accum, dev in (
+            ("card accum 1", p_card, 1, DEV),
+            ("card accum 2", p_card2, 2, DEV),
+            ("cpu accum 1", p_cpu, 1, "cpu")):
+        step, opt = make_train_step(cfg32, lr=TRAIN_LR, accum=accum)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        state = opt.init(params)
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, b)
+        out[name] = {"loss": float(loss),
+                     "seconds": time.perf_counter() - t0}
+        mus[name] = state.mu
+    rel = {"mu": {}, "param": {}}
+    for what, got, want in (
+            ("mu", mus["card accum 1"], mus["cpu accum 1"]),
+            ("param", flatten(p_card), flatten(p_cpu))):
+        for k, w in want.items():
+            if what == "param" and k in zero_init:
+                continue
+            rel[what][k] = float((got[k].cpu() - w).norm() / w.norm())
+    worst = max(max(v.values()) for v in rel.values())
+    l1, l2 = out["card accum 1"]["loss"], out["card accum 2"]["loss"]
+    accum_rel = abs(l2 - l1) / abs(l1)
+    card_cpu = abs(l1 - out["cpu accum 1"]["loss"]) / abs(l1)
+    ok = worst <= TRAIN_PARAM_RTOL and accum_rel <= TRAIN_ACCUM_RTOL
+    emit({"check": "lm_train float32 2-layer twin, full width: one step "
+          f"on the card and on the CPU, B {TRAIN_B} x T {TRAIN_T}",
+          "steps": out, "rel_err_by_leaf": rel,
+          "params_not_held (zero at init: the update alone)": zero_init,
+          "max_rel_err": worst, "rtol": TRAIN_PARAM_RTOL,
+          "accum2_vs_accum1_loss_rel": accum_rel,
+          "accum_rtol": TRAIN_ACCUM_RTOL,
+          "card_vs_cpu_loss_rel": card_cpu, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"lm_train twin: card against CPU {worst} "
+                           f"(limit {TRAIN_PARAM_RTOL}), accum loss "
+                           f"{accum_rel} (limit {TRAIN_ACCUM_RTOL})")
+    del p_card, p_card2, p_cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------- phase 4e
+def phase_lm_distill(smi):
+    """The paper's FedSiKD step at LLM scale: teacher full qwen2.5-3b
+    (bf16, random weights), students its ``as_student()`` (18 layers) in D
+    = len(DISTILL_CLUSTERS) replicas, one replica's batch 1 x DISTILL_T
+    tokens.  Two default steps, then from the students they leave the
+    default step (timed), the vocab-chunked step (chunk DISTILL_CHUNK) and
+    the teacher-in-grad step, and once more the default step under the
+    profiler (the KD kernels' device time beside their bound); then
+    ``sync``.  Raises unless: each default and teacher-in-grad step makes
+    one KD forward and one backward launch, all ``stream``, and the chunked
+    step none; the teacher's flash launches are its layers (``tensor_core``)
+    once a step, twice D times in the teacher-in-grad step (the backward
+    recomputes it); the chunked and teacher-in-grad losses are within
+    KD_TOL's bf16 rtol of the default one, and the profiled step's equal
+    to the timed one's; every loss is finite; the replicas are equal after
+    ``sync``; and the teacher's bytes are unchanged."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kd_softmax_kl as kd
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import make_fedsikd_distill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import flatten
+
+    cfg = get_config(LM_ARCH)
+    D = len(DISTILL_CLUSTERS)
+    teacher = tf.init_lm(LM_SEED, cfg, device=DEV)
+    teacher_host = {k: v.cpu() for k, v in flatten(teacher).items()}
+    makers = {path: make_fedsikd_distill_step(
+        cfg, DISTILL_CLUSTERS, lr=DISTILL_LR, **kw) for path, kw in (
+            ("default", {}), ("vocab_chunk", {"vocab_chunk": DISTILL_CHUNK}),
+            ("teacher_in_grad", {"teacher_in_grad": True}))}
+    _, sync, init_students, opt, s_cfg = makers["default"]
+    students = init_students(LM_SEED + 1, device=DEV)
+    opt_state = opt.init(students)
+    flat = flatten(students)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.num_layers
+    want_fa = {"default": L, "vocab_chunk": L, "teacher_in_grad": 2 * D * L}
+    want_kd = {"default": 1, "vocab_chunk": 0, "teacher_in_grad": 1}
+    # the plan's regime at the step's rows: stream at an LLM vocabulary
+    regime = kd.plan(DISTILL_ROWS, cfg.vocab_size, torch.cuda
+                     .get_device_properties(0).multi_processor_count)[
+                         "regime"]
+    runs = []
+
+    def run(path, i, prof=None):
+        batch = _lm_batch(cfg, (D, 1, DISTILL_T), 300 + i)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = makers[path][0](students, opt_state, teacher, batch)
+        torch.cuda.synchronize()
+        r = {"path": path, "batch": i, "loss": float(loss),
+             "seconds": time.perf_counter() - t0, "profiled": bool(prof),
+             **_launches_of_ours()}
+        kd_want = {"rows": 0, "stream": 0}
+        kd_want[regime] = want_kd[path]
+        ok = (r["flash_attention"] == {"v1": 0, "tensor_core":
+                                       want_fa[path], "decode": 0}
+              and r["kd_fwd"] == kd_want and r["kd_bwd"] == kd_want
+              and r["launches"]["fused_merge"] == 0)
+        runs.append(r)
+        if not ok:
+            emit({"phase": "lm_distill", "failed_step": r})
+            raise RuntimeError(f"lm_distill {path} step: expected "
+                               f"{want_fa[path]} tensor_core flash launches "
+                               f"and KD forward and backward launches "
+                               f"{kd_want}, counted {r}")
+        return r
+
+    run("default", 0)
+    run("default", 1)
+    snapshot = _to_cpu(flat)                      # on the host
+
+    def restore():
+        for k, v in flat.items():
+            v.copy_(snapshot[k])
+
+    run("default", 2)
+    restore()
+    run("vocab_chunk", 2)
+    restore()
+    run("teacher_in_grad", 2)
+    restore()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run("default", 2, prof=True)
+    kd_us = {}
+    for key in ("kd_fwd_stream_kernel", "kd_bwd_chunk_kernel"):
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and key in e.key]
+        kd_us[key] = {"device_us": sum(e.self_device_time_total
+                                       for e in ev),
+                      "calls": sum(e.count for e in ev)}
+    elt = 2
+    T, V = DISTILL_ROWS, cfg.vocab_size
+    # the bytes and operations of _kd_timing's bounds
+    fwd_bound = bound_ms(2 * T * V * elt + 20 * T, KD_FWD_OPS_PER_ELEM * T * V)
+    bwd_bound = bound_ms(3 * T * V * elt + 20 * T, KD_BWD_OPS_PER_ELEM * T * V)
+    kd_us["kd_fwd_stream_kernel"].update(bound_ms=fwd_bound[0],
+                                         bound_by=fwd_bound[1])
+    kd_us["kd_bwd_chunk_kernel"].update(bound_ms=bwd_bound[0],
+                                        bound_by=bwd_bound[1])
+    del snapshot
+    sync(students)
+    torch.cuda.synchronize()
+    replicas_equal = all(all(torch.equal(v[d], v[0]) for d in range(1, D))
+                         for v in flat.values())
+    teacher_same = all(torch.equal(v.cpu(), teacher_host[k])
+                       for k, v in flatten(teacher).items())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    by = {(r["path"], r["batch"], r["profiled"]): r for r in runs}
+    ref = by[("default", 2, False)]["loss"]
+    rtol = KD_TOL["bfloat16"][0]
+    gaps = {p: abs(by[(p, 2, False)]["loss"] - ref) / abs(ref)
+            for p in ("vocab_chunk", "teacher_in_grad")}
+    repeat = abs(by[("default", 2, True)]["loss"] - ref) / abs(ref)
+    finite = all(math.isfinite(r["loss"]) for r in runs)
+    emit({"phase": "lm_distill", "card": smi,
+          "config": f"teacher {LM_ARCH} full ({cfg.num_layers} layers), "
+          f"students {s_cfg.num_layers} layers ({s_cfg.param_count()} "
+          f"params each), D {D}, clusters {list(DISTILL_CLUSTERS)}, 1 x "
+          f"{DISTILL_T} tokens a replica, {cfg.dtype}, lr {DISTILL_LR}, "
+          "random weights",
+          "steps": [{k: r[k] for k in ("path", "batch", "loss", "seconds",
+                                       "profiled", "flash_attention",
+                                       "kd_fwd", "kd_bwd")} for r in runs],
+          "kd_rows": DISTILL_ROWS, "kd_regime": regime, "card_sms":
+          torch.cuda.get_device_properties(0).multi_processor_count,
+          "kd_in_step": kd_us,
+          "loss_rel_to_default": gaps, "loss_rtol": rtol,
+          "profiled_repeat_rel": repeat,
+          "peak_memory_gb": peak, "replicas_equal_after_sync":
+          replicas_equal, "teacher_unchanged": teacher_same})
+    if not finite:
+        raise RuntimeError(f"lm_distill: non-finite losses {runs}")
+    if max(gaps.values()) > rtol or repeat > rtol:
+        raise RuntimeError(f"lm_distill: losses from one state differ by "
+                           f"{gaps} / {repeat} (limit {rtol})")
+    if not replicas_equal:
+        raise RuntimeError("lm_distill: replicas differ after sync")
+    if not teacher_same:
+        raise RuntimeError("lm_distill: the step wrote to the teacher")
+    if any(v["calls"] != 1 for v in kd_us.values()):
+        raise RuntimeError(f"lm_distill: the profiler saw {kd_us}")
+    counts = {"kd_softmax_kl_fwd": sum(r["launches"]["kd_softmax_kl_fwd"]
+                                       for r in runs),
+              "kd_softmax_kl_bwd": sum(r["launches"]["kd_softmax_kl_bwd"]
+                                       for r in runs),
+              "flash_attention": sum(r["launches"]["flash_attention"]
+                                     for r in runs)}
+    del students, opt_state, teacher, flat, makers
+    torch.cuda.empty_cache()
+    return counts, kd_us
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1708,7 +2135,7 @@ def _fa_timing(shape, seed):
 
 
 def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
-                 variants, smi):
+                 variants, smi, *, fa_paths, distill_kd):
     import torch
     rows_path = PATH_ROWS
     kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
@@ -1727,6 +2154,7 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
     for T, V, dtype in ((2048, 32000, torch.float32),
                         (2048, 32000, torch.bfloat16),
                         (1024, 151936, torch.bfloat16),
+                        (DISTILL_ROWS, 151936, torch.bfloat16),
                         (16, 151936, torch.bfloat16)):
         f, b = _kd_timing(T, V, dtype, 21)
         shape = f"T={T} V={V} {str(dtype)[6:]}"
@@ -1748,13 +2176,19 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
          "replaces": "src/repro/kernels/kd_softmax_kl.py:33",
          "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
          **kd_fwd, "library_ms": None, "large": kd_large["fwd"],
-         "launches_by_path": kd_paths, "path": "run_federated packed"},
+         "launches_by_path": kd_paths, "path": "run_federated packed",
+         "in_lm_distill_step": {
+             "shape": f"T={DISTILL_ROWS} V=151936 bfloat16",
+             **distill_kd["kd_fwd_stream_kernel"]}},
         {"name": "kd_softmax_kl_bwd", "route": "cuda",
          "source": src + "kd_softmax_kl.cu",
          "replaces": "src/repro/kernels/kd_softmax_kl.py:118",
          "shape": f"T={rows_path} (40 lanes x 64) V=10 float32, one call",
          **kd_bwd, "library_ms": None, "large": kd_large["bwd"],
-         "launches_by_path": kd_paths, "path": "run_federated packed"},
+         "launches_by_path": kd_paths, "path": "run_federated packed",
+         "in_lm_distill_step": {
+             "shape": f"T={DISTILL_ROWS} V=151936 bfloat16",
+             **distill_kd["kd_bwd_chunk_kernel"]}},
         {"name": "fused_merge", "route": "cuda",
          "source": src + "fused_merge.cu",
          "replaces": "src/repro/kernels/fused_merge.py:30",
@@ -1784,7 +2218,7 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
          "sources": [src + f for f in ("flash_attention_tc.cu",
                                        "flash_attention_decode.cu",
                                        "flash_attention.cu")],
-         "variant_launches": variants,
+         "variant_launches": variants, "launches_by_path": fa_paths,
          "path": f"{LM_ARCH} serve: prefill {LM_B} x {LM_PROMPT} + "
          f"{LM_DECODE} decode steps"},
     ]
@@ -2062,7 +2496,9 @@ def main() -> int:
     baseline_merges = phase_baselines_path(ds, loop_h, packed_h)
     runtime_counts, runtime_h = phase_runtime_path(ds, loop_h, packed_h)
     scale_counts = phase_scale_path(ds, runtime_h)
-    lm_counts, lm_variants = phase_lm_serve(smi)
+    lm_counts, lm_variants, serve_more = phase_lm_serve(smi)
+    phase_lm_train(smi)
+    distill_counts, distill_kd = phase_lm_distill(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
                     ("fused_merge", merge_counts),
@@ -2084,7 +2520,11 @@ def main() -> int:
                                 "kmeans_assign")),
                     ("fused_merge", scale_counts["fedavg loop scale"]),
                     ("fused_merge", scale_counts["fedavg packed 2 waves"]),
-                    ("flash_attention", lm_counts)):
+                    ("flash_attention", lm_counts),
+                    *(("flash_attention", c) for c in serve_more.values()),
+                    ("kd_softmax_kl_fwd", distill_counts),
+                    ("kd_softmax_kl_bwd", distill_counts),
+                    ("flash_attention", distill_counts)):
         if c[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")
     path_counts = {"kd_softmax_kl_fwd": packed_counts["kd_softmax_kl_fwd"],
@@ -2111,9 +2551,17 @@ def main() -> int:
     kd_paths = {"fedsikd packed": packed_counts["kd_softmax_kl_fwd"],
                 **{k: c["kd_softmax_kl_fwd"]
                    for k, c in scale_counts.items()
-                   if k.startswith("fedsikd")}}
+                   if k.startswith("fedsikd")},
+                "lm_distill (6 steps, 5 on the KD kernels)":
+                distill_counts["kd_softmax_kl_fwd"]}
+    fa_paths = {f"{LM_ARCH} serve": lm_counts["flash_attention"],
+                **{f"{a} serve": c["flash_attention"]
+                   for a, c in serve_more.items()},
+                "lm_distill teacher (6 steps)":
+                distill_counts["flash_attention"],
+                "lm_train": 0}
     phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
-                 lm_variants, smi)
+                 lm_variants, smi, fa_paths=fa_paths, distill_kd=distill_kd)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,11 @@
 
 ``ModelConfig`` keeps every field, ``hd``, ``as_student`` and
 ``param_count`` of the JAX package's, so a configuration means the same in
-both.  Only the dense decoders that the port serves are registered
-(``qwen2.5-3b``, ``glm4-9b``, ``minitron-8b``, each with its full-size and
-reduced ``smoke`` variant); ``get_config`` on any other architecture raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 10.
+both.  Only the dense and VLM-prefix decoders that the port runs are registered
+(``qwen2.5-3b``, ``glm4-9b``, ``minitron-8b``, ``internvl2-2b`` and
+``nemotron-4-340b``, each with its full-size and reduced ``smoke``
+variant); ``get_config`` on any other architecture raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 10.4.
 """
 from __future__ import annotations
 
@@ -163,8 +164,10 @@ class ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
 
-# the architectures whose models the port runs (dense GQA decoders)
-PORTED = ("qwen2.5-3b", "glm4-9b", "minitron-8b")
+# the architectures whose models the port runs (dense GQA decoders and the
+# VLM with a stub prefix)
+PORTED = ("qwen2.5-3b", "glm4-9b", "minitron-8b", "internvl2-2b",
+          "nemotron-4-340b")
 
 
 def register(arch_id: str, full: Callable[[], ModelConfig],
@@ -178,9 +181,9 @@ def _ensure_loaded(arch_id: str) -> None:
         raise KeyError(f"unknown architecture {arch_id!r} (known: {ARCH_IDS})")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port serves the dense "
+            f"{arch_id!r} is not ported yet: the port runs the dense "
             f"decoders {list(PORTED)}; the other families (MLA, MoE, rwkv, "
-            "ssm, hybrid, encdec) are ROADMAP Queue 1 item 10")
+            "ssm, hybrid, encdec) are ROADMAP Queue 1 item 10.4")
     if arch_id not in _REGISTRY:
         mod = arch_id.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")

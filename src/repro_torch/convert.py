@@ -22,7 +22,11 @@ nothing: every LM weight is ``(in, out)``, its layers stacked on a leading
 L axis, so the conv rule above, which reads any 3-D leaf as WIO, must not
 touch them.  A bfloat16 leaf, which ``np.asarray`` gives as
 ``ml_dtypes.bfloat16``, crosses as float32 (every bf16 value is a float32),
-so that direction is exact too.
+so that direction is exact too.  Their Adam states
+(``lm_adam_from_jax`` / ``lm_adam_to_jax``) hold the moments as the LM
+steps' optimizers do, flat with dotted keys (``layers.attn.wq``); a
+stacked state (the distillation step's students) keeps its leading D axis
+on every moment and its (D,) count.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim import AdamState
+from repro_torch.tree import flatten, unflatten
 
 
 def _flatten(tree, prefix=""):
@@ -156,3 +161,22 @@ def lm_params_to_jax(params):
         import ml_dtypes
         return t.float().numpy().astype(ml_dtypes.bfloat16)
     return t.numpy().copy()
+
+
+def lm_adam_from_jax(state, *, device="cpu") -> AdamState:
+    """A JAX ``AdamState`` over LM params (nested moments; under ``vmap``
+    each with a leading D axis and a (D,) count) -> the port's, with flat
+    dotted-key moments."""
+    mu, nu, count = state
+    return AdamState(flatten(lm_params_from_jax(mu, device=device)),
+                     flatten(lm_params_from_jax(nu, device=device)),
+                     torch.from_numpy(np.array(count, dtype=np.int32))
+                     .to(device))
+
+
+def lm_adam_to_jax(state: AdamState) -> AdamState:
+    """The inverse of ``lm_adam_from_jax``: nested numpy moments and a
+    numpy count, as an ``AdamState``."""
+    return AdamState(lm_params_to_jax(unflatten(state.mu)),
+                     lm_params_to_jax(unflatten(state.nu)),
+                     state.count.detach().cpu().numpy().copy())

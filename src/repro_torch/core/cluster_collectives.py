@@ -7,7 +7,9 @@ the grouped means are an ``all_gather`` plus a per-device weighted-row
 contraction inside ``shard_map``.  On one card every slot lives in one
 ``(S, ...)`` stack per leaf, so the operators collapse to one product per
 leaf: ``table (S, S) @ stack`` (a row per slot) or ``row (S,) @ stack``,
-contracted in float32 and cast back to the leaf's dtype.  These are plain
+contracted in float32 and cast back to the leaf's dtype (the teacher sync
+about each slot's first cluster member, so equal replicas stay equal bit
+for bit).  These are plain
 products that the JAX package leaves to XLA outside any Pallas kernel, so
 they are ``torch.matmul`` here.  The operators are runtime tensors built
 from a ``RoundPlan`` (``sync_matrix``, ``agg_row``), as in JAX.
@@ -52,10 +54,30 @@ def packed_teacher_sync(tree, sync_matrix):
     over the cluster's active slots, idle slots keep an identity row).
     Integer leaves (Adam step counts) stay per slot: a float mean truncated
     back to int would corrupt a count whenever members ran unequal step
-    budgets."""
-    synced = packed_weighted_gather(tree, sync_matrix)
-    return tree_map(lambda orig, new: new if orig.is_floating_point()
-                    else orig, tree, synced)
+    budgets.
+
+    The mean is taken about each slot's reference, the first slot of its
+    row (the cluster's first member): ``x[ref] + table @ (x - x[ref])``,
+    which is ``table @ x`` for an operator whose rows average over blocks
+    of a partition of the slots, as the plan's does.  Replicas that are
+    equal (leader mode trains them on identical batches) then sync to
+    themselves bit for bit, whatever the number of members; ``table @ x``
+    rounds ``n`` copies of ``x / n`` differently for each ``n``, so the
+    same cohort would train different teachers in one wave and in
+    several."""
+    table = torch.as_tensor(sync_matrix, dtype=torch.float32)
+    ref = torch.argmax((table != 0).to(torch.int32), dim=1)
+
+    def leaf(x):
+        if not x.is_floating_point():
+            return x
+        S = x.shape[0]
+        xf = x.reshape(S, -1).to(torch.float32)
+        base = xf[ref.to(xf.device)]
+        out = base + table.to(xf.device) @ (xf - base)
+        return out.to(x.dtype).reshape(x.shape)
+
+    return tree_map(leaf, tree)
 
 
 def packed_weighted_mean(tree, weights):

@@ -15,6 +15,7 @@ universe (``universe``) and the runtime guards (``guards``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -359,9 +360,31 @@ def run_federated(ds: Dataset, cfg: FedConfig, *, device="cuda",
                   progress: bool = False) -> dict:
     """Runs ``cfg.rounds`` federated rounds on ``device``; returns per-round
     test metrics in the history schema of ``repro.fed.rounds.run_federated``.
+    A packed run (``engine="sharded"``) uses cuDNN's deterministic
+    algorithms (``deterministic_cudnn``).
     """
     dev = resolve_device(device)
     from repro_torch.fed.algorithms import make_algorithm
     from repro_torch.fed.driver import RoundDriver
-    return RoundDriver(ds, cfg, make_algorithm(cfg), device=dev,
-                       progress=progress).run()
+    packed = cfg.engine == "sharded"
+    with deterministic_cudnn() if packed else contextlib.nullcontext():
+        return RoundDriver(ds, cfg, make_algorithm(cfg), device=dev,
+                           progress=progress).run()
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """``torch.backends.cudnn.deterministic`` on for the block, restored
+    after.  The packed engine computes a stack of lanes with grouped
+    convolutions, and a cohort streamed in waves must train each lane as
+    one wave of the whole cohort would.  cuDNN's default weight-gradient
+    algorithms accumulate with atomics, so a lane's gradient changes from
+    run to run and with the stack's width; the deterministic ones give it
+    bit for bit whatever the width, and packed runs repeat bit for bit.
+    The loop engine has no lane stack and keeps cuDNN's defaults."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev

@@ -28,8 +28,11 @@ Dispatch of a CUDA tensor, by dtype and T only (``variant``):
 
 A tensor on the CPU goes to the plain version; a CUDA tensor goes to its
 kernel, or the wrapper raises (there is no fallback).  The kernels have no
-backward: a call off the CPU with grad mode on and an input that requires
-grad raises (``refuse_grad``) rather than return an output with no grad
+backward, and need none: training takes the JAX package's plain
+attention (``models.layers.attention_fwd(..., train=True)``), as the
+reference trains through jnp and never through its Pallas kernel.  A
+direct call off the CPU with grad mode on and an input that requires grad
+raises (``refuse_grad``) rather than return an output with no grad
 history; the CPU plain version stays differentiable.
 ``flash_attention.launches`` counts wrapper calls that launched a kernel,
 ``flash_attention.variant_launches`` the same calls by kernel.
@@ -192,7 +195,10 @@ def _check(q, k, v, window):
 def refuse_grad(q, k, v) -> None:
     """Raise when a call off the CPU would need a gradient: the CUDA
     kernels fill their output through a raw launch, with no backward, so
-    the output would silently carry no grad history."""
+    the output would silently carry no grad history.  The model's training
+    forward never comes here (it passes ``train=True`` down to the plain
+    attention); a caller that does is asking for a gradient the kernels
+    cannot give."""
     if (q.device.type != "cpu" and torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         raise NotImplementedError(

@@ -9,10 +9,15 @@ so the model can build its layers' params stacked on a leading L axis in
 one draw per leaf (``dense_init`` reads its fan-in from ``shape[-2]``, as
 the JAX one does under ``vmap``).
 
-Every attention goes through ``kernels.ops.flash_attention``: the CUDA
-kernel for CUDA tensors, its plain version for CPU ones.  Multi-head latent
-attention (MLA) and mixture-of-experts blocks are not ported (ROADMAP
-Queue 1 item 10).
+Serving attention (prefill and decode) goes through
+``kernels.ops.flash_attention``: the CUDA kernel for CUDA tensors, its
+plain version for CPU ones.  Training attention (``attention_fwd(...,
+train=True)``) is the JAX module's own: ``_sdpa`` (scores materialised)
+below ``2 * cfg.attn_block`` positions and ``sdpa_blocked`` (an online
+softmax over key blocks, each block step recomputed in the backward) at
+or above it, in plain torch, as the reference trains through jnp and
+never through its Pallas kernel.  Multi-head latent attention (MLA) and
+mixture-of-experts blocks are not ported (ROADMAP Queue 1 item 10.4).
 """
 from __future__ import annotations
 
@@ -20,11 +25,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-# the JAX module's mask helper, defined beside its user, the plain attention
-from repro_torch.kernels.flash_attention import causal_mask  # noqa: F401
+# the JAX module's mask helper, defined beside the plain flash attention
+from repro_torch.kernels.flash_attention import NEG, causal_mask
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -80,7 +86,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def init_attention(gen, cfg: ModelConfig, *, lead: tuple = ()):
     if cfg.use_mla:
         raise NotImplementedError("multi-head latent attention (MLA) is not "
-                                  "ported yet (ROADMAP Queue 1 item 10)")
+                                  "ported yet (ROADMAP Queue 1 item 10.4)")
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt = _dtype(cfg)
     p = {
@@ -109,18 +115,105 @@ def _qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v.reshape(B, T, KVH, hd)
 
 
-def attention_fwd(p, cfg: ModelConfig, x, positions, *, window: int = 0):
+def _sdpa(q, k, v, mask, *, scale):
+    """Attention with the (T, S) scores materialised.  q: (B, T, H, hd);
+    k, v: (B, S, KVH, hd); GQA by head group; ``mask`` broadcasts to the
+    (B, KVH, G, T, S) scores.  Scores and softmax in float32, the weights
+    cast to v's dtype before the product with V, as in JAX."""
+    B, T, H, hd = q.shape
+    KVH = k.shape[2]
+    qg = q.reshape(B, T, KVH, H // KVH, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k).float() * scale
+    scores = scores.masked_fill(~mask, NEG)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", w, v)
+    return out.reshape(B, T, H, hd)
+
+
+def _block_step(m, l, acc, qblk, kblk, vblk, row0: int, col0: int,
+                scale: float, causal: bool, window: int):
+    """One key block of ``sdpa_blocked``'s online softmax: the running max
+    ``m``, sum ``l`` and float32 accumulator ``acc`` of one query block
+    (B, KVH, G, bq[, hd]) after the keys [col0, col0 + bk); the query
+    block's first row sits at key position ``row0``."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", qblk, kblk.float()) * scale
+    if causal:
+        rows = row0 + torch.arange(s.shape[3], device=s.device)[:, None]
+        cols = col0 + torch.arange(s.shape[4], device=s.device)[None, :]
+        mask = cols <= rows
+        if window:
+            mask &= cols > rows - window
+        s = s.masked_fill(~mask, NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    r = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * r + p.sum(-1)
+    acc_new = acc * r[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p,
+                                                vblk.float())
+    return m_new, l_new, acc_new
+
+
+def sdpa_blocked(q, k, v, *, scale, causal: bool = True, window: int = 0,
+                 offset: int | None = None, block: int = 1024):
+    """Double-blocked flash-style attention in plain torch, the port of
+    the JAX function: query blocks of ``block`` rows, and for each an
+    online max/sum over key blocks, each block step under
+    ``torch.utils.checkpoint`` (the JAX scan's ``jax.checkpoint(inner)``),
+    so the backward keeps one (B, KVH, G, bq, bk) score block at a time.
+    q: (B, T, H, hd); k, v: (B, S, KVH, hd) -> (B, T, H, hd).
+
+    Ragged last blocks are sliced, not padded.  With a causal mask and
+    ``offset`` >= 0 every query sees itself, so a block pair whose every
+    score is masked adds exactly nothing and is skipped."""
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    offset = (S - T) if offset is None else offset
+    bq, bk = min(block, T), min(block, S)
+    outs = []
+    for i0 in range(0, T, bq):
+        qblk = q[:, i0:i0 + bq].reshape(B, -1, KVH, G, hd).float()
+        n = qblk.shape[1]
+        row0 = i0 + offset
+        m = torch.full((B, KVH, G, n), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KVH, G, n), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KVH, G, n, hd), dtype=torch.float32,
+                          device=q.device)
+        for j0 in range(0, S, bk):
+            j1 = min(j0 + bk, S)
+            if causal and offset >= 0 and (
+                    j0 > row0 + n - 1
+                    or (window and j1 - 1 <= row0 - window)):
+                continue
+            m, l, acc = checkpoint(_block_step, m, l, acc, qblk,
+                                   k[:, j0:j1], v[:, j0:j1], row0, j0, scale,
+                                   causal, window, use_reentrant=False)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,KVH,G,n,hd)
+        outs.append(out.permute(0, 3, 1, 2, 4))            # (B,n,KVH,G,hd)
+    return torch.cat(outs, dim=1).reshape(B, T, H, hd).to(q.dtype)
+
+
+def attention_fwd(p, cfg: ModelConfig, x, positions, *, window: int = 0,
+                  train: bool = False):
     """Full prefill attention.  Returns (out, (k, v)), k/v for the cache.
 
-    The JAX function picks between two jnp formulations of one function by
-    ``cfg.attn_block``: scores materialised for T < 2 * attn_block, the
-    blocked online-softmax scan above it, to keep (T, T) scores out of TPU
-    memory.  The flash-attention kernel never materialises the scores at
-    any T, so the port calls it for both, and ``attn_block`` stays in the
-    config only for the JAX package."""
+    Serving (``train=False``) calls the flash-attention kernel, which never
+    materialises the scores at any T.  Training (``train=True``, set by
+    the caller that differentiates: ``lm_loss`` and the distillation
+    losses) takes the JAX function's own jnp formulations, chosen by
+    ``cfg.attn_block`` as JAX chooses: ``_sdpa`` for T < 2 * attn_block,
+    ``sdpa_blocked`` at or above it."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    if not train:
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+    elif cfg.attn_block and T >= 2 * cfg.attn_block:
+        out = sdpa_blocked(q, k, v, scale=cfg.hd ** -0.5, causal=True,
+                           window=window, block=cfg.attn_block)
+    else:
+        mask = causal_mask(T, T, window=window, device=x.device)
+        out = _sdpa(q, k, v, mask, scale=cfg.hd ** -0.5)
     return out.reshape(B, T, -1) @ p["wo"], (k, v)
 
 

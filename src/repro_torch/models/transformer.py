@@ -1,12 +1,15 @@
 """Decoder-only language model, dense and VLM-prefix families: the port of
 ``repro.models.transformer`` (``init_lm``, ``forward``, ``init_cache``,
-``decode_step``, ``prefill``), serving path only.
+``decode_step``, ``prefill``, ``lm_loss``).
 
 Layer params are stacked on a leading L axis, as in JAX, and a Python loop
 walks them (the port of ``jax.lax.scan``): ``p["layers"]["attn"]["wq"]``
-is (L, d, H * hd).  The MoE, MLA, ``ssm`` (rwkv6), ``hybrid`` (zamba2) and
-audio branches are not ported and raise (ROADMAP Queue 1 item 10), as do
-``lm_loss`` and training.
+is (L, d, H * hd).  ``forward(..., train=True)`` is the training forward:
+attention through the JAX module's jnp formulations (``layers._sdpa`` /
+``sdpa_blocked``) instead of the flash kernel, and with ``cfg.remat`` each
+layer under ``torch.utils.checkpoint`` (the port of ``_maybe_remat``).
+The MoE, MLA, ``ssm`` (rwkv6), ``hybrid`` (zamba2) and audio branches are
+not ported and raise (ROADMAP Queue 1 item 10.4).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ly
@@ -24,7 +28,7 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.arch_type}, mla={cfg.use_mla}, experts="
             f"{cfg.num_experts}) is not ported yet: the port runs dense "
-            "decoders (ROADMAP Queue 1 item 10)")
+            "decoders (ROADMAP Queue 1 item 10.4)")
 
 
 def _layer(tree, i: int):
@@ -74,14 +78,30 @@ def _logits(p, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ forward
+def _block(lp, cfg: ModelConfig, x, positions, win: int, train: bool):
+    """One decoder layer: (x out, (k, v))."""
+    h = ly.rmsnorm(lp["ln1"], x, cfg.rms_eps)
+    a, kv = ly.attention_fwd(lp["attn"], cfg, h, positions, window=win,
+                             train=train)
+    x = x + a
+    h = ly.rmsnorm(lp["ln2"], x, cfg.rms_eps)
+    return x + ly.mlp_fwd(lp["mlp"], cfg, h), kv
+
+
+def _train_block(x, lp, cfg: ModelConfig, positions, win: int):
+    return _block(lp, cfg, x, positions, win, True)[0]
+
+
 def forward(p, cfg: ModelConfig, batch: dict, *, window: int | None = None,
-            return_cache: bool = False, return_hidden: bool = False):
-    """Eval/prefill forward.  Returns (logits, aux) or, with
+            return_cache: bool = False, return_hidden: bool = False,
+            train: bool = False):
+    """Training/eval/prefill forward.  Returns (logits, aux) or, with
     ``return_cache``, (logits, cache) where cache matches ``init_cache``'s
     layout (sliding-window caches keep the last ``window`` positions, slot
     order aligned with the rotating decode buffer when T % window == 0).
     ``return_hidden`` returns the final-normed hidden states instead of the
-    logits."""
+    logits.  ``train=True`` is for a caller that differentiates: training
+    attention, and each layer checkpointed when ``cfg.remat``."""
     _check_ported(cfg)
     x = _embed(p, cfg, batch)
     B, T, _ = x.shape
@@ -100,12 +120,11 @@ def forward(p, cfg: ModelConfig, batch: dict, *, window: int | None = None,
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(p["layers"], i)
-        h = ly.rmsnorm(lp["ln1"], x, cfg.rms_eps)
-        a, (k, v) = ly.attention_fwd(lp["attn"], cfg, h, positions,
-                                     window=win)
-        x = x + a
-        h = ly.rmsnorm(lp["ln2"], x, cfg.rms_eps)
-        x = x + ly.mlp_fwd(lp["mlp"], cfg, h)
+        if train and cfg.remat and not return_cache:
+            x = checkpoint(_train_block, x, lp, cfg, positions, win,
+                           use_reentrant=False)
+            continue
+        x, (k, v) = _block(lp, cfg, x, positions, win, train)
         if return_cache:
             ks.append(trim(k))
             vs.append(trim(v))
@@ -155,3 +174,22 @@ def prefill(p, cfg: ModelConfig, batch: dict):
     it first, as no function of the JAX package does either."""
     logits, cache = forward(p, cfg, batch, return_cache=True)
     return logits[:, -1, :].contiguous(), cache
+
+
+# -------------------------------------------------------------------- loss
+def lm_loss(p, cfg: ModelConfig, batch: dict):
+    """Next-token cross-entropy (+ aux, zero for the dense families), in
+    float32 over the labels >= 0 (-1 = ignore); a VLM's prefix positions
+    are sliced off, so the labels cover the token region only.  Returns
+    (loss, {"ce", "aux"}); the forward is the training one."""
+    logits, aux = forward(p, cfg, batch, train=True)
+    if cfg.prefix_len:
+        logits = logits[:, cfg.prefix_len:, :]
+    labels = batch["labels"]
+    logf = logits.float()
+    logz = torch.logsumexp(logf, dim=-1)
+    picked = torch.gather(logf, -1,
+                          labels.long().clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = torch.sum((logz - picked) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}

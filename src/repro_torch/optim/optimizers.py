@@ -3,7 +3,10 @@
 
 An ``Optimizer`` is (init, update):  state = init(params);
 updates, state = update(grads, state, params).  Apply with
-``apply_updates``.  ``torch.optim`` is not used: AdamW here adds the weight
+``apply_updates``.  ``adamw`` also has ``update_(grads, state, params)``,
+which does the same arithmetic leaf by leaf and writes the moments, the
+parameters and the count in place (the port's form of JAX's buffer
+donation, for models too large to hold two copies of their state).  ``torch.optim`` is not used: AdamW here adds the weight
 decay inside the learning-rate step, after the moment normalisation, exactly
 as the JAX package does, and the state is plain data the engine can copy.
 Moments are float32 (``state_dtype``) and the step count an int32 scalar
@@ -16,11 +19,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
+# elements of a leaf that ``update_`` takes at a time (64 MB in float32)
+INPLACE_PIECE = 1 << 24
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
     update: Callable
+    update_: Callable | None = None
 
 
 def _device(params) -> torch.device:
@@ -103,7 +110,42 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
         return {k: upd(k) for k in grads}, AdamState(mu, nu, count)
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(grads, state: AdamState, params):
+        """``update`` followed by ``apply_updates``, written into
+        ``state.mu``, ``state.nu``, ``params`` and ``state.count`` in
+        place; returns ``state``.  Each leaf goes in pieces of
+        ``INPLACE_PIECE`` elements through the same elementwise
+        expressions as ``update``, so the result is bit for bit theirs and
+        the temporaries stay a piece's size.  Views (one replica of a
+        stack) are taken as they are."""
+        count = state.count + 1
+        step_lr = lr_fn(count)
+        cf = count.to(torch.float32)
+        c1 = 1 - b1 ** cf
+        c2 = 1 - b2 ** cf
+        for k, g in grads.items():
+            m_all = state.mu[k].view(-1)
+            v_all = state.nu[k].view(-1)
+            p_all = params[k].view(-1)
+            g_all = g.reshape(-1)
+            for a in range(0, g_all.numel(), INPLACE_PIECE):
+                sl = slice(a, a + INPLACE_PIECE)
+                gf = g_all[sl].float()
+                m = (b1 * m_all[sl].float() + (1 - b1) * gf).to(state_dtype)
+                v = (b2 * v_all[sl].float()
+                     + (1 - b2) * torch.square(gf)).to(state_dtype)
+                m_all[sl] = m
+                v_all[sl] = v
+                p = p_all[sl]
+                u = -step_lr * (m.float() / c1
+                                / (torch.sqrt(v.float() / c2) + eps)
+                                + weight_decay * p.float())
+                p_all[sl] = (p + u.to(p.dtype)).to(p.dtype)
+        state.count.copy_(count)
+        return state
+
+    return Optimizer(init, update, update_)
 
 
 # ------------------------------------------------------------------ fedprox

@@ -714,3 +714,93 @@ def test_lm_prefill_and_decode_on_the_card_match_cpu(dev):
         "decode": cfg.num_layers * extra}
     print(f"lm card-vs-cpu max abs gap {float((got - want).abs().max())}")
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _flat_to(tree, device):
+    from repro_torch.tree import flatten
+    return {k: v.detach().to(device, copy=True)
+            for k, v in flatten(tree).items()}
+
+
+def test_lm_train_step_on_the_card_launches_nothing_and_matches_cpu(dev):
+    """A 2-layer smoke-width qwen2.5-3b in float32 with attn_block 16: one
+    train step at accum 2 on 2 x 64 tokens (the blocked training
+    attention) launches no flash and no KD kernel, and its params match
+    the same step on the CPU per leaf at 1e-4 in the Frobenius norm (the
+    near-zero-gradient key bias by Adam's step bound, as in
+    ``chip_smoke.phase_lm_train``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import unflatten
+    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True),
+                              dtype="float32", attn_block=16)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = tf.init_lm(2, cfg, device="cpu")
+    out = {}
+    for device in ("cpu", dev):
+        p = unflatten(_flat_to(params, device))
+        step, opt = make_train_step(cfg, lr=1e-3, accum=2)
+        reset_launches()
+        _, _, loss = step(p, opt.init(p), {k: v.to(device)
+                                           for k, v in batch.items()})
+        out[str(device)] = (float(loss), _flat_to(p, "cpu"),
+                            dict(launch_counts()))
+    (l_cpu, p_cpu, _), (l_card, p_card, counts) = out.values()
+    assert counts["flash_attention"] == counts["kd_softmax_kl_fwd"] == 0
+    assert counts["kd_softmax_kl_bwd"] == 0
+    assert l_card == pytest.approx(l_cpu, rel=1e-5)
+    for k, w in p_cpu.items():
+        if k == "layers.attn.bk":
+            assert float(p_card[k].abs().max()) <= 1e-3
+            continue
+        assert float((p_card[k] - w).norm() / w.norm()) <= 1e-4, k
+
+
+@pytest.mark.parametrize("path,kw,kd_n,fa_per_layer", [
+    ("default", {}, 1, 1),
+    ("vocab_chunk", {"vocab_chunk": 200}, 0, 1),
+    ("teacher_in_grad", {"teacher_in_grad": True}, 1, 4),   # 2 x D
+])
+def test_lm_distill_step_launches_on_the_card(dev, path, kw, kd_n,
+                                              fa_per_layer):
+    """A smoke-width qwen2.5-3b teacher in bf16, D 2 students: each loss
+    path's exact KD launches (the lanes form: one forward and one
+    backward, none when vocab-chunked) and teacher flash launches (one
+    forward of the whole batch, or each replica's forward twice inside
+    its checkpointed closure); the loss within bf16 tolerance of the same
+    step on the CPU; the teacher unchanged."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_fedsikd_distill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import flatten, unflatten
+    cfg = get_config("qwen2.5-3b", smoke=True)
+    D = 2
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (D, 1, 33)))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    teacher = tf.init_lm(1, cfg, device="cpu")
+    step, _, init, opt, _ = make_fedsikd_distill_step(cfg, (0, 0), **kw)
+    students = init(2, device="cpu")
+    losses = {}
+    for device in ("cpu", dev):
+        t = unflatten(_flat_to(teacher, device))
+        before = _flat_to(t, "cpu")
+        s = unflatten(_flat_to(students, device))
+        reset_launches()
+        _, _, loss = step(s, opt.init(s), t,
+                          {k: v.to(device) for k, v in batch.items()})
+        losses[str(device)] = float(loss)
+        for k, v in flatten(t).items():
+            assert torch.equal(v.cpu(), before[k]), k
+    counts = launch_counts()
+    assert kd.kd_loss_fwd.variant_launches == {"rows": kd_n, "stream": 0}
+    assert kd.kd_loss_bwd.variant_launches == {"rows": kd_n, "stream": 0}
+    assert fa.flash_attention.variant_launches == {
+        "v1": 0, "tensor_core": fa_per_layer * cfg.num_layers, "decode": 0}
+    assert counts["fused_merge"] == 0
+    assert losses[str(dev)] == pytest.approx(losses["cpu"], rel=5e-2)

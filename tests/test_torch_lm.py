@@ -1,4 +1,6 @@
-"""The port's dense-decoder serving path against the JAX package on the
+"""The port's serving path of the dense decoders and the VLM (every
+registered architecture: qwen2.5-3b, glm4-9b, minitron-8b, nemotron-4-340b,
+internvl2-2b with its stub prefix) against the JAX package on the
 CPU: configs, layers (``rmsnorm``, ``apply_rope``, ``mlp_fwd``,
 ``attention_fwd`` in both of JAX's branches, ``attention_decode``), the
 model (``forward``, ``prefill`` and a grown-cache ``decode_step``
@@ -35,7 +37,10 @@ from repro_torch.models import transformer as tf
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import _grow  # noqa: E402  (grows a prefill's cache)
 
-DENSE = ["qwen2.5-3b", "glm4-9b", "minitron-8b"]
+# every registered architecture: the dense decoders (nemotron-4-340b's
+# smoke head_dim 96 runs on the CPU's plain attention) and the VLM
+DENSE = ["qwen2.5-3b", "glm4-9b", "minitron-8b", "nemotron-4-340b",
+         "internvl2-2b"]
 KEY = jax.random.PRNGKey(0)
 TOL = 2e-4
 
@@ -52,6 +57,18 @@ def _close(got, want, tol=TOL):
     np.testing.assert_allclose(got.detach().float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
+
+
+def _prefixed(cfg, toks, seed=2):
+    """The model batch of ``toks``: a VLM also gets its (B, P, d) stub
+    prefix from numpy; returns (JAX batch, port batch)."""
+    b = {"tokens": toks}
+    if cfg.prefix_len:
+        b["prefix"] = np.random.default_rng(seed).standard_normal(
+            (toks.shape[0], cfg.prefix_len, cfg.d_model), np.float32)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in b.items()})
 
 
 def _tokens(cfg, B, T, seed=1):
@@ -206,14 +223,14 @@ def _models(arch, **over):
 def test_forward_matches_jax(arch):
     jc, tc, jp, tp = _models(arch)
     toks = _tokens(jc, 2, 24)
-    want, _ = jtf.forward(jp, jc, {"tokens": jnp.asarray(toks)})
-    got, aux = tf.forward(tp, tc, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (2, 24, jc.vocab_size) and float(aux) == 0.0
+    jb, tb = _prefixed(jc, toks)
+    want, _ = jtf.forward(jp, jc, jb)
+    got, aux = tf.forward(tp, tc, tb)
+    assert got.shape == (2, 24 + jc.prefix_len, jc.vocab_size)
+    assert float(aux) == 0.0
     _close(got, want)
-    hid, _ = tf.forward(tp, tc, {"tokens": torch.from_numpy(toks)},
-                        return_hidden=True)
-    want_h, _ = jtf.forward(jp, jc, {"tokens": jnp.asarray(toks)},
-                            return_hidden=True)
+    hid, _ = tf.forward(tp, tc, tb, return_hidden=True)
+    want_h, _ = jtf.forward(jp, jc, jb, return_hidden=True)
     _close(hid, want_h)
 
 
@@ -235,6 +252,7 @@ def test_prefill_then_decode_continuation(arch, entry):
     ``decode_step``, or ``make_prefill_step`` / ``make_decode_step``)."""
     jc, tc, jp, tp = _models(arch)
     T, extra = 12, 4
+    P = jc.prefix_len                  # a VLM's cache starts with its prefix
     toks = _tokens(jc, 2, T + extra)
     if entry == "model":
         jpre, jdec = (functools.partial(jtf.prefill, jp, jc),
@@ -246,18 +264,20 @@ def test_prefill_then_decode_continuation(arch, entry):
                       functools.partial(jst.make_decode_step(jc), jp))
         tpre, tdec = (functools.partial(st.make_prefill_step(tc), tp),
                       functools.partial(st.make_decode_step(tc), tp))
-    want, jcache = jpre({"tokens": jnp.asarray(toks[:, :T])})
-    got, tcache = tpre({"tokens": torch.from_numpy(toks[:, :T])})
+    jb, tb = _prefixed(jc, toks[:, :T])
+    want, jcache = jpre(jb)
+    got, tcache = tpre(tb)
     _close(got, want)
     _close(tcache["k"], jcache["k"])
+    assert tcache["k"].shape[2] == P + T
     jcache = jax.tree_util.tree_map(
         lambda a: jnp.pad(a, ((0, 0), (0, 0), (0, extra), (0, 0), (0, 0))),
         jcache)
     tcache = _grow(tcache, extra)
     jdec = jax.jit(jdec)
     for t in range(T, T + extra):
-        want, jcache = jdec(jcache, jnp.asarray(toks[:, t:t + 1]), t)
-        got, tcache = tdec(tcache, torch.from_numpy(toks[:, t:t + 1]), t)
+        want, jcache = jdec(jcache, jnp.asarray(toks[:, t:t + 1]), P + t)
+        got, tcache = tdec(tcache, torch.from_numpy(toks[:, t:t + 1]), P + t)
         _close(got, want)
     _close(tcache["v"], jcache["v"])
 

@@ -160,6 +160,43 @@ def test_packed_operators_match_jax():
     assert synced["n"].dtype == torch.int32
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7])
+def test_teacher_sync_keeps_equal_replicas_exact(n):
+    """Equal replicas of a cluster sync to themselves bit for bit for any
+    member count, so a teacher does not depend on how many of its slots
+    share a wave; unequal members still get their mean."""
+    r = np.random.default_rng(n)
+    S = n + 4
+    x = r.standard_normal((S, 257)).astype(np.float32)
+    x[:n] = x[0]
+    table = np.eye(S, dtype=np.float32)
+    table[:n, :n] = 1.0 / n                   # cluster 0: slots 0..n-1
+    table[n + 1:, n + 1:] = 1.0 / 3           # cluster 1: the last three
+    tree = {"w": torch.from_numpy(x), "n": torch.arange(S, dtype=torch.int32)}
+    synced = cc.packed_teacher_sync(tree, torch.from_numpy(table))
+    got = synced["w"].numpy()
+    np.testing.assert_array_equal(got[:n + 1], x[:n + 1])
+    np.testing.assert_allclose(got[n + 1:], np.broadcast_to(
+        x[n + 1:].mean(0), (3, 257)), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(synced["n"].numpy(), np.arange(S))
+
+
+@pytest.mark.parametrize("engine", ["sharded", "loop"])
+def test_packed_runs_use_deterministic_cudnn(engine, monkeypatch):
+    """``run_federated`` holds cuDNN's deterministic flag on for a packed
+    run and restores it after; a loop run keeps the flag as it was."""
+    from repro_torch.fed import driver
+    seen = []
+    monkeypatch.setattr(driver.RoundDriver, "run", lambda self: seen.append(
+        torch.backends.cudnn.deterministic) or {})
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    run_federated(load_dataset("mnist", small=True),
+                  FedConfig(num_clients=4, rounds=1, engine=engine),
+                  device="cpu")
+    assert seen == [engine == "sharded"]
+    assert torch.backends.cudnn.deterministic is False
+
+
 # ---------------------------------------------------- packed round programs
 FEAT, V, B, T = 12, 10, 8, 3
 BUDGETS = np.asarray([3, 1, 0, 2], np.int32)
