@@ -29,7 +29,11 @@ a prefill of 2 x 4096 tokens and 32 greedy decode steps through
 ``make_prefill_step`` / ``make_decode_step``, with every attention in a
 flash-attention kernel (the bf16 prefill on the tensor-core kernel, every
 decode step on the decode kernel), and glm4-9b, minitron-8b and
-internvl2-2b the same way at 1 x 1024 tokens and 8 steps; then trains the
+internvl2-2b the same way at 1 x 1024 tokens and 8 steps, and, at full
+width with the depth cut to fit 80 GB, deepseek-v2-236b (multi-head
+latent attention and 160 experts, no flash kernel), arctic-480b (128
+experts beside a dense MLP) and nemotron-4-340b (head dim 192), each
+then a float32 1-layer copy's decode held to its forward; then trains the
 full qwen2.5-3b (phase ``lm_train``: ``make_train_step`` on 2 x 2048
 tokens at accum 1 and 2, the plain training attention, no port kernel,
 and a float32 2-layer twin's step held to the same step on the CPU) and
@@ -124,12 +128,25 @@ LM_SEED = 0
 # decode-vs-forward bound of the float32 2-layer consistency run (abs and
 # relative): the same function summed in other orders (split keys, T = 1)
 LM_CONSISTENCY_TOL = 1e-3
-# the other served models, each at full width and depth with random
-# weights: GQA groups of 16 (glm4-9b, 18.8 GB in bf16), vocab 256000 and
-# squared ReLU (minitron-8b), a 256-position VLM prefix (internvl2-2b); a
-# shorter request than qwen2.5-3b's to stay inside the run's time
-SERVE_MORE = ("glm4-9b", "minitron-8b", "internvl2-2b")
+# the other served models, each at full width with random weights: GQA
+# groups of 16 (glm4-9b, 18.8 GB in bf16), vocab 256000 and squared ReLU
+# (minitron-8b), a 256-position VLM prefix (internvl2-2b) at full depth;
+# MLA and 160 experts top-6 with 2 shared (deepseek-v2-236b), 128 experts
+# top-2 beside a dense MLP and GQA groups of 7 (arctic-480b), and head_dim
+# 192 with GQA groups of 12 (nemotron-4-340b), whose bf16 weights do not
+# fit 80 GB, at the depth SERVE_DEPTH gives (by param_count: 6 of 60
+# layers, 49.8 GB; 2 of 35, 55.4 GB; 6 of 96, 60.3 GB); a shorter request
+# than qwen2.5-3b's to stay inside the run's time
+SERVE_MORE = ("glm4-9b", "minitron-8b", "internvl2-2b", "deepseek-v2-236b",
+              "arctic-480b", "nemotron-4-340b")
+SERVE_DEPTH = {"deepseek-v2-236b": 6, "arctic-480b": 2, "nemotron-4-340b": 6}
 SERVE_B, SERVE_PROMPT, SERVE_DECODE = 1, 1024, 8
+# each depth-cut model's decode-vs-forward check: a float32 copy with one
+# layer at full width serves SERVE_CHECK_PROMPT tokens and SERVE_DECODE
+# steps, held to a full forward of the same tokens at LM_CONSISTENCY_TOL;
+# its MoE capacity factor is raised to E / k + 1, so that the forward, like
+# decode (capacity B), drops no token (the served runs keep 1.25)
+SERVE_CHECK_PROMPT = 64
 # lm_train: full qwen2.5-3b, TRAIN_STEPS steps at accum 1 then at accum 2,
 # on B x T tokens (T >= 2 * attn_block: the blocked training attention);
 # the float32 2-layer twin's card step is held to its CPU step per leaf at
@@ -152,6 +169,17 @@ DISTILL_T = 1024
 DISTILL_ROWS = len(DISTILL_CLUSTERS) * DISTILL_T
 DISTILL_CHUNK = 8192
 DISTILL_LR = 1e-4
+# head dims 96 and 192 (ROADMAP Queue 2 item 5): shapes of the checks, and
+# the timed shapes of phase 5: nemotron-4-340b's prefill and last decode
+# step (96 query heads, 8 kv heads, hd 192) and the same at hd 96
+FA_HD192_PREFILL = (SERVE_B, 96, 8, SERVE_PROMPT, SERVE_PROMPT, 192, 0)
+FA_HD192_DECODE = (SERVE_B, 96, 8, 1, SERVE_PROMPT + SERVE_DECODE, 192, 0)
+FA_HD96_PREFILL = (SERVE_B, 96, 8, SERVE_PROMPT, SERVE_PROMPT, 96, 0)
+FA_HD96_DECODE = (SERVE_B, 96, 8, 1, SERVE_PROMPT + SERVE_DECODE, 96, 0)
+FA_NEW_HD = [shape for hd in (96, 192) for shape in (
+    (1, 4, 2, 100, 100, hd, 0), (2, 4, 4, 64, 256, hd, 0),
+    (1, 2, 2, 128, 128, hd, 32), (1, 4, 2, 96, 40, hd, 0),
+    (2, 16, 2, 1, 97, hd, 0), (1, 24, 2, 1, LM_PROMPT + 1, hd, 0))]
 # (B, H, KVH, T, S, hd, window) of the flash-attention checks: the JAX
 # kernel test's shapes and windowed case, an unequal-pad causal shape, the
 # served model's prefill and its first and last decode step (T = 1 over the
@@ -169,7 +197,16 @@ FA_SHAPES = [(1, 4, 4, 64, 64, 32, 0), (2, 8, 2, 128, 128, 64, 0),
              (SERVE_B, 32, 2, 1, SERVE_PROMPT + SERVE_DECODE, 128, 0),
              (SERVE_B, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128, 0),
              (SERVE_B, 16, 8, 256 + SERVE_PROMPT, 256 + SERVE_PROMPT, 128, 0),
-             (len(DISTILL_CLUSTERS), 16, 2, DISTILL_T, DISTILL_T, 128, 0)]
+             (len(DISTILL_CLUSTERS), 16, 2, DISTILL_T, DISTILL_T, 128, 0),
+             # arctic-480b's prefill and last decode step (GQA groups of 7)
+             (SERVE_B, 56, 8, SERVE_PROMPT, SERVE_PROMPT, 128, 0),
+             (SERVE_B, 56, 8, 1, SERVE_PROMPT + SERVE_DECODE, 128, 0),
+             # head dims 96 and 192: ragged T, cross-length, a window, T > S
+             # (rows that see no key), decode over one span and over many,
+             # and nemotron-4-340b's prefill and last decode step (groups
+             # of 12)
+             *FA_NEW_HD,
+             FA_HD192_PREFILL, FA_HD192_DECODE]
 # (rtol, atol) of the kernel against its plain version.  Both keep scores,
 # softmax weights and the product with V in float32 and round once, at the
 # output: float32 to 2e-5 (measured <= 1.7e-6); bf16 to one rounding of the
@@ -257,16 +294,63 @@ def phase_setup():
 
 
 # ------------------------------------------------------------------ phase 1
+def _kernel_name(mangled: str) -> str:
+    """``fa_decode_kernel<bf16,96,8>`` from an Itanium-mangled kernel name
+    (the last name of its nest, and its template arguments: types and
+    integers)."""
+    import re
+    rest, name = mangled[3:] if mangled.startswith("_ZN") else mangled, ""
+    while rest[:1].isdigit():                  # <length><identifier> ...
+        n = re.match(r"\d+", rest).group()
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    args, rest = [], rest[1:] if rest[:1] == "I" else ""
+    while rest and rest[0] != "E":
+        m = re.match(r"L([ib])(-?\d+)E", rest)
+        if m:                                  # an int or bool argument
+            args.append(m.group(2) if m.group(1) == "i"
+                        else ("false", "true")[int(m.group(2))])
+            rest = rest[m.end():]
+        elif rest[0].isdigit():                # a named type
+            n = re.match(r"\d+", rest).group()
+            ident = rest[len(n):len(n) + int(n)]
+            args.append({"__nv_bfloat16": "bf16", "__half": "f16"}.get(
+                ident, ident))
+            rest = rest[len(n) + int(n):]
+        else:                                  # a builtin type
+            args.append({"f": "f32", "i": "int"}.get(rest[0], rest[0]))
+            rest = rest[1:]
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Each kernel's registers and spills (bytes) from ``nvcc -Xptxas
+    -v``'s log, by its name and template arguments."""
+    import re
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1))}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
-    """The port's library: one nvcc per source, all started together."""
+    """The port's library: one nvcc per source, all started together;
+    prints each kernel's registers and spills."""
     from repro_torch.kernels import _build
     info = _build.build()
     _build.library()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "built": info["built"],
           "seconds": info["seconds"], "library": info["path"],
-          "ptxas": ptxas})
+          "ptxas": ptxas_usage(info["log"])})
 
 
 # ------------------------------------------------------------------ phase 2
@@ -535,6 +619,8 @@ def phase_kernel_checks():
         errs["kmeans_assign"] = max(errs["kmeans_assign"], e)
     errs["flash_attention"] = 0.0
     errs["flash_attention_decode"] = 0.0
+    errs["flash_attention_hd96"] = 0.0
+    errs["flash_attention_hd192"] = 0.0
     for shape in [*FA_SHAPES, FA_MASKED]:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _fa_inputs(shape, dtype, seed=sum(shape))
@@ -556,6 +642,9 @@ def phase_kernel_checks():
             if shape == FA_PREFILL or shape in FA_DECODE:
                 key = "flash_attention" + ("_decode" if shape[3] == 1
                                            else "")
+                errs[key] = max(errs[key], e)
+            if shape[5] in (96, 192):
+                key = f"flash_attention_hd{shape[5]}"
                 errs[key] = max(errs[key], e)
             if shape == FA_MASKED:
                 B, H, KVH, T, S = shape[:5]
@@ -1574,12 +1663,17 @@ def phase_lm_serve(smi):
 
 
 def _serve_other(arch, smi):
-    """One of the other served models at full width and depth (random
-    weights, seed LM_SEED; a VLM's prefix standard normal from a seed):
-    SERVE_B x SERVE_PROMPT tokens and SERVE_DECODE greedy steps after a
-    warm-up serve.  Raises unless the flash kernels took exactly its
-    layers on ``tensor_core`` and layers x SERVE_DECODE on ``decode``, and
-    the logits are finite.  Returns the launch counts."""
+    """One of the other served models at full width (random weights, seed
+    LM_SEED; a VLM's prefix standard normal from a seed), at full depth or
+    the depth SERVE_DEPTH gives: SERVE_B x SERVE_PROMPT tokens and
+    SERVE_DECODE greedy steps after a warm-up serve.  Raises unless the
+    flash kernels took exactly its GQA layers on ``tensor_core`` and those
+    layers x SERVE_DECODE on ``decode`` (none for an MLA model, whose
+    attention is plain torch), and the logits are finite; a depth-cut
+    model's decode is then held to a full forward (``_check_decode``).
+    Returns the launch counts and the expected flash launches."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1588,7 +1682,9 @@ def _serve_other(arch, smi):
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import DTYPES
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SERVE_DEPTH.get(
+        arch, full.num_layers))
     params = tf.init_lm(LM_SEED, cfg, device=DEV)
     r = np.random.default_rng(LM_SEED + 2)
     prompt = torch.from_numpy(r.integers(0, cfg.vocab_size,
@@ -1606,15 +1702,29 @@ def _serve_other(arch, smi):
     counts = launch_counts()
     variants = dict(fa.flash_attention.variant_launches)
     finite = bool(torch.isfinite(torch.stack(logits).float()).all())
-    want = {"v1": 0, "tensor_core": cfg.num_layers,
-            "decode": cfg.num_layers * SERVE_DECODE}
+    gqa_layers = 0 if cfg.use_mla else cfg.num_layers
+    want = {"v1": 0, "tensor_core": gqa_layers,
+            "decode": gqa_layers * SERVE_DECODE}
+    depth = (f"{cfg.num_layers} layers" if cfg.num_layers == full.num_layers
+             else f"depth cut to {cfg.num_layers} of {full.num_layers} "
+             "layers to fit 80 GB")
+    attn = (f"MLA (kv_lora_rank {cfg.kv_lora_rank}, q_lora_rank "
+            f"{cfg.q_lora_rank}, qk {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, v "
+            f"{cfg.v_head_dim})" if cfg.use_mla else f"head_dim {cfg.hd}")
+    moe = (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok}"
+           f" (+{cfg.num_shared_experts} shared"
+           + (", dense residual" if cfg.moe_dense_residual else "")
+           + f"), capacity factor {cfg.capacity_factor}"
+           if cfg.num_experts else "")
     emit({"phase": "lm_serve", "card": smi,
-          "config": f"{arch} full width and depth ({cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
-          f"head_dim {cfg.hd}, d_ff {cfg.d_ff} {cfg.activation}, vocab "
-          f"{cfg.vocab_size}, prefix {cfg.prefix_len}), {cfg.dtype}, random "
-          f"weights seed {LM_SEED}",
-          "params": cfg.param_count(), "batch": SERVE_B,
+          "config": f"{arch} full width, {depth} (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {attn}, d_ff "
+          f"{cfg.d_ff} {cfg.activation}{moe}, vocab {cfg.vocab_size}, prefix "
+          f"{cfg.prefix_len}), {cfg.dtype}, random weights seed {LM_SEED}",
+          "params": cfg.param_count(),
+          "params_full_depth": full.param_count(),
+          "layers": cfg.num_layers, "layers_full": full.num_layers,
+          "batch": SERVE_B,
           "prompt": SERVE_PROMPT, "prefix": cfg.prefix_len,
           "decode_steps": SERVE_DECODE, "prefill_ms": pre_s * 1e3,
           "prefill_tokens_per_s": SERVE_B * (SERVE_PROMPT + cfg.prefix_len)
@@ -1635,7 +1745,56 @@ def _serve_other(arch, smi):
                            "logits")
     del params, logits
     torch.cuda.empty_cache()
-    return counts
+    if cfg.num_layers != full.num_layers:
+        _check_decode(arch, full, smi)
+    return {"launches": counts, "expected_flash": sum(want.values())}
+
+
+def _check_decode(arch, full, smi):
+    """A float32 copy of ``full`` with one layer at full width serves
+    SERVE_CHECK_PROMPT tokens and SERVE_DECODE greedy steps; each step's
+    logits are held to a full forward of the same tokens at
+    LM_CONSISTENCY_TOL.  Prefill drops tokens over capacity and decode
+    never does, so the MoE capacity factor is raised to E / k + 1, at which
+    the forward drops none either."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(full, num_layers=1, dtype="float32")
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                                  / cfg.num_experts_per_tok + 1)
+    params = tf.init_lm(LM_SEED, cfg, device=DEV)
+    prompt = torch.from_numpy(np.random.default_rng(LM_SEED + 3).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_CHECK_PROMPT))).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    logits, toks, _, _ = _serve(cfg, params, prompt, SERVE_DECODE)
+    full_logits, _ = tf.forward(params, cfg, {"tokens": torch.cat(
+        [prompt, toks], dim=1)})
+    P = SERVE_CHECK_PROMPT
+    want = full_logits[:, P - 1:P + SERVE_DECODE].transpose(0, 1)
+    got = torch.stack(logits)
+    gap = (got - want).abs()
+    share = float((gap / (LM_CONSISTENCY_TOL
+                          + LM_CONSISTENCY_TOL * want.abs())).max())
+    ok = share <= 1.0
+    emit({"check": f"lm_serve {arch} float32 1 layer at full width: prefill "
+          f"{P} + {SERVE_DECODE} decode steps vs a full forward of the same "
+          f"tokens (capacity factor {cfg.capacity_factor})",
+          "card": smi, "max_abs_err": float(gap.max()),
+          "max_share_of_bound": share,
+          "max_abs_logit": float(want.abs().max()),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "rtol": LM_CONSISTENCY_TOL, "atol": LM_CONSISTENCY_TOL, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"{arch}: decode logits differ from the full "
+                           f"forward by {float(gap.max())} (limit "
+                           f"{LM_CONSISTENCY_TOL})")
+    del params, logits, full_logits
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------- phase 4d
@@ -2169,6 +2328,17 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
     fa_decode = _fa_timing(FA_DECODE[-1], 31)
     emit({"timing": "flash_attention, the served model's decode step",
           **fa_decode, "card": smi})
+    fa_hd = {}
+    for tag, shape, seed in (
+            ("hd 192, nemotron-4-340b's prefill", FA_HD192_PREFILL, 32),
+            ("hd 192, nemotron-4-340b's last decode step", FA_HD192_DECODE,
+             33),
+            ("hd 96 prefill", FA_HD96_PREFILL, 34),
+            ("hd 96 decode step", FA_HD96_DECODE, 35)):
+        t = _fa_timing(shape, seed)
+        t["max_abs_err"] = errs[f"flash_attention_hd{shape[5]}"]
+        emit({"timing": f"flash_attention, {tag}", **t, "card": smi})
+        fa_hd[tag] = t
     src = "src/repro_torch/kernels/csrc/"
     rows = [
         {"name": "kd_softmax_kl_fwd", "route": "cuda",
@@ -2215,6 +2385,7 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
          **fa_prefill,
          "decode": {**fa_decode,
                     "max_abs_err": errs["flash_attention_decode"]},
+         "head_dims_96_192": fa_hd,
          "sources": [src + f for f in ("flash_attention_tc.cu",
                                        "flash_attention_decode.cu",
                                        "flash_attention.cu")],
@@ -2521,7 +2692,8 @@ def main() -> int:
                     ("fused_merge", scale_counts["fedavg loop scale"]),
                     ("fused_merge", scale_counts["fedavg packed 2 waves"]),
                     ("flash_attention", lm_counts),
-                    *(("flash_attention", c) for c in serve_more.values()),
+                    *(("flash_attention", m["launches"])
+                      for m in serve_more.values() if m["expected_flash"]),
                     ("kd_softmax_kl_fwd", distill_counts),
                     ("kd_softmax_kl_bwd", distill_counts),
                     ("flash_attention", distill_counts)):
@@ -2555,8 +2727,10 @@ def main() -> int:
                 "lm_distill (6 steps, 5 on the KD kernels)":
                 distill_counts["kd_softmax_kl_fwd"]}
     fa_paths = {f"{LM_ARCH} serve": lm_counts["flash_attention"],
-                **{f"{a} serve": c["flash_attention"]
-                   for a, c in serve_more.items()},
+                **{f"{a} serve" + (f" ({SERVE_DEPTH[a]} layers)"
+                                   if a in SERVE_DEPTH else ""):
+                   m["launches"]["flash_attention"]
+                   for a, m in serve_more.items()},
                 "lm_distill teacher (6 steps)":
                 distill_counts["flash_attention"],
                 "lm_train": 0}

@@ -3,11 +3,13 @@
 
 ``ModelConfig`` keeps every field, ``hd``, ``as_student`` and
 ``param_count`` of the JAX package's, so a configuration means the same in
-both.  Only the dense and VLM-prefix decoders that the port runs are registered
-(``qwen2.5-3b``, ``glm4-9b``, ``minitron-8b``, ``internvl2-2b`` and
-``nemotron-4-340b``, each with its full-size and reduced ``smoke``
-variant); ``get_config`` on any other architecture raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 10.4.
+both.  Only the architectures that the port runs are registered: the dense
+decoders and the VLM-prefix one (``qwen2.5-3b``, ``glm4-9b``,
+``minitron-8b``, ``internvl2-2b``, ``nemotron-4-340b``) and the
+mixture-of-experts ones (``deepseek-v2-236b`` with multi-head latent
+attention, ``arctic-480b``), each with its full-size and reduced ``smoke``
+variant; ``get_config`` on any other architecture (rwkv, ssm, hybrid,
+encdec) raises ``NotImplementedError`` naming ROADMAP Queue 1 item 10.4.
 """
 from __future__ import annotations
 
@@ -164,10 +166,10 @@ class ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
 
-# the architectures whose models the port runs (dense GQA decoders and the
-# VLM with a stub prefix)
+# the architectures whose models the port runs (dense GQA decoders, the
+# VLM with a stub prefix, and the MoE decoders, one of them with MLA)
 PORTED = ("qwen2.5-3b", "glm4-9b", "minitron-8b", "internvl2-2b",
-          "nemotron-4-340b")
+          "nemotron-4-340b", "deepseek-v2-236b", "arctic-480b")
 
 
 def register(arch_id: str, full: Callable[[], ModelConfig],
@@ -181,9 +183,9 @@ def _ensure_loaded(arch_id: str) -> None:
         raise KeyError(f"unknown architecture {arch_id!r} (known: {ARCH_IDS})")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port runs the dense "
-            f"decoders {list(PORTED)}; the other families (MLA, MoE, rwkv, "
-            "ssm, hybrid, encdec) are ROADMAP Queue 1 item 10.4")
+            f"{arch_id!r} is not ported yet: the port runs "
+            f"{list(PORTED)}; the other families (rwkv, ssm, hybrid, "
+            "encdec) are ROADMAP Queue 1 item 10.4")
     if arch_id not in _REGISTRY:
         mod = arch_id.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,8 +1,7 @@
 """nemotron-4-340b — giant dense GQA with squared-ReLU MLP
 [arXiv:2402.16819].  96L, d_model 18432, 96 heads (GQA kv=8, head_dim 192),
-d_ff 73728, vocab 256000.  The flash kernels take head dims 32, 64 and 128,
-so on the card this model waits for ROADMAP Queue 2 item 5; its smoke
-config (head_dim 96) runs on the CPU's plain attention."""
+d_ff 73728, vocab 256000.  Its smoke config has head_dim 96; the flash
+kernels take both head dims."""
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig, register

@@ -20,7 +20,10 @@ Language models (``lm_params_from_jax`` / ``lm_params_to_jax``) keep the
 nested dict of the JAX params (``p["layers"]["attn"]["wq"]``) and permute
 nothing: every LM weight is ``(in, out)``, its layers stacked on a leading
 L axis, so the conv rule above, which reads any 3-D leaf as WIO, must not
-touch them.  A bfloat16 leaf, which ``np.asarray`` gives as
+touch them.  The MoE and MLA trees carry over the same way: the float32
+router, the experts' stacked ``w_in`` (L, E, d, 2f) and ``w_out`` (L, E,
+f, d), the ``shared`` / ``dense`` MLPs, and MLA's ``q_a`` ... ``wo`` with
+their two norms.  A bfloat16 leaf, which ``np.asarray`` gives as
 ``ml_dtypes.bfloat16``, crosses as float32 (every bf16 value is a float32),
 so that direction is exact too.  Their Adam states
 (``lm_adam_from_jax`` / ``lm_adam_to_jax``) hold the moments as the LM

@@ -27,14 +27,16 @@
 // The first design is simple and right, not fast.  A block owns 64 rows;
 // a row is one (query position, query head) pair, and the heads of one GQA
 // group share the block, so the block stages each K/V row once for all of
-// them.  Two neighbouring threads own a row, each holding half of the
-// pre-scaled query and half of the float32 output accumulator in registers.
+// them.  Two neighbouring threads own a row (four at hd 192, whose halves
+// would hold 96 + 96 floats a thread), each holding its share of the
+// pre-scaled query and of the float32 output accumulator in registers.
 // K and V are staged in shared memory 64 keys at a time, in their own type,
 // by cp.async in two stages (the next block's copy is in flight while the
-// current one is used).  Each thread scores 16 keys against its half
+// current one is used).  Each thread scores 16 keys against its share
 // (16-byte reads that the warp shares as broadcasts, widened to float32 in
-// registers), the pair adds its halves by one shuffle, the row's running
-// max and sum are updated once per 16 keys, and the 16 weights multiply V
+// registers), the row's threads add their shares by shuffles, the row's
+// running max and sum are updated once per 16 keys, and the 16 weights
+// multiply V
 // the same way; a warp with no live row skips the arithmetic.  The block
 // walks only the keys its rows can see (the causal diagonal and the window
 // bound the range); the rest of the TPU kernel's grid is skipped, which
@@ -56,9 +58,7 @@
 namespace fedsikd {
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kRows = 64;        // (position, head) rows per block
-constexpr int kTPR = 2;          // threads per row: one half of hd each
 constexpr int kBK = 64;          // keys staged in shared memory per pass
 constexpr int kChunk = 16;       // keys per online-softmax update
 constexpr int kMaxSplit = 1024;  // key-axis splits the merge takes
@@ -98,6 +98,13 @@ struct Piece {
   static constexpr int kN = 16 / static_cast<int>(sizeof(T));
 };
 
+// Threads a row (each owns hd / kTPR columns) and a block, by head dim.
+template <int HD>
+struct Split {
+  static constexpr int kTPR = HD > 128 ? 4 : 2;
+  static constexpr int kThreads = kRows * kTPR;
+};
+
 // Start the copy of keys kb .. kb + nk - 1 of K and V into one stage.
 template <typename T, int HD>
 __device__ __forceinline__ void stage(T* ks, T* vs, const T* kp,
@@ -105,7 +112,7 @@ __device__ __forceinline__ void stage(T* ks, T* vs, const T* kp,
                                       int nk) {
   constexpr int kPer = Piece<T>::kN;
   constexpr int kPerRow = HD / kPer;
-  for (int e = threadIdx.x; e < nk * kPerRow; e += kThreads) {
+  for (int e = threadIdx.x; e < nk * kPerRow; e += Split<HD>::kThreads) {
     const int j = e / kPerRow;
     const int c = (e - j * kPerRow) * kPer;
     const long long s = kb + j;
@@ -115,8 +122,9 @@ __device__ __forceinline__ void stage(T* ks, T* vs, const T* kp,
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Split<HD>::kThreads)
 fa_fwd_kernel(const Args a) {
+  constexpr int kTPR = Split<HD>::kTPR;
   constexpr int kDPT = HD / kTPR;              // dims per thread
   constexpr int kPer = Piece<T>::kN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -196,7 +204,10 @@ fa_fwd_kernel(const Args a) {
       float mx = m;
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
-        float sc = s[c] + __shfl_xor_sync(kFull, s[c], 1);
+        float sc = s[c];
+#pragma unroll
+        for (int o = 1; o < kTPR; o <<= 1)
+          sc += __shfl_xor_sync(kFull, sc, o);
         const int key = kb + j0 + c;
         if (j0 + c >= nk) {
           sc = -INFINITY;                      // no such key: weight 0
@@ -306,13 +317,13 @@ fa_merge_kernel(const Args a) {
 template <typename T, int HD>
 int launch(const Args& a, int B, int KVH, cudaStream_t stream) {
   constexpr int kSmem = 4 * kBK * HD * static_cast<int>(sizeof(T));
-  // above 48 KB (hd 128) only after this opt-in
+  // above 48 KB (hd 96 and up) only after this opt-in; 192 KB at hd 192
   cudaError_t err = cudaFuncSetAttribute(
       fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.grid_x, KVH * a.n_gblk, B * a.n_split);
-  fa_fwd_kernel<T, HD><<<grid, kThreads, kSmem, stream>>>(a);
+  fa_fwd_kernel<T, HD><<<grid, Split<HD>::kThreads, kSmem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return static_cast<int>(err);
   const dim3 mgrid(a.grid_x * kRows, grid.y, B);
@@ -325,7 +336,9 @@ int launch_hd(const Args& a, int B, int KVH, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<T, 32>(a, B, KVH, stream);
     case 64: return launch<T, 64>(a, B, KVH, stream);
+    case 96: return launch<T, 96>(a, B, KVH, stream);
     case 128: return launch<T, 128>(a, B, KVH, stream);
+    case 192: return launch<T, 192>(a, B, KVH, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -337,7 +350,8 @@ using namespace fedsikd;
 
 // q (B, T, H, hd), k/v (B, S, KVH, hd), out (B, T, H, hd): strides in
 // elements, the hd axis contiguous; k and v 16-byte aligned, with strides
-// in whole 16-byte units (the cp.async copies).  hd in {32, 64, 128};
+// in whole 16-byte units (the cp.async copies).  hd in {32, 64, 96, 128,
+// 192};
 // H % KVH == 0; n_split <= 1024.
 // With n_split > 1 the key axis is cut into spans of split_len keys (a
 // multiple of 64) and part_acc / part_ml hold (blocks * n_split * 64 * hd)

@@ -26,17 +26,23 @@
 // - The block stages its span's K and V rows in shared memory by cp.async,
 //   64 keys at a time, K in one copy group and V in the next, all in
 //   flight at once: the scores start when K has landed, while V streams.
-// - Scores: a key is covered by 16-byte loads of hd / 8 (bf16) or hd / 4
-//   (f32) lanes; each lane holds its slice of the group's 8 query heads in
-//   registers and forms 8 partial dots, and the lanes of a key reduce them
-//   by halving exchanges (reduce-scatter: 8 shuffles for 8 heads over 16
-//   lanes, in place of 32), ending with each head's score in one lane.
-//   All 8 warps are busy: a warp takes 2 keys a pass in bf16 at hd 128.
+// - Scores: a key row is hd / 8 (bf16) or hd / 4 (f32) 16-byte pieces,
+//   covered by a power of two of lanes (`Layout::kLPK`, at most 32; at hd
+//   96 and 192, 12, 24 or 48 pieces, the lanes past the last piece hold
+//   zeros, and at f32 hd 192 a lane takes two pieces); each lane holds its
+//   slice of the group's 8 query heads in registers and forms 8 partial
+//   dots, and the lanes of a key reduce them by halving exchanges
+//   (reduce-scatter: 8 shuffles for 8 heads over 16 lanes, in place of
+//   32), ending with each head's score in one lane.  All 8 warps are busy:
+//   a warp takes 2 keys a pass in bf16 at hd 128.
 // - Softmax per head over the chunk by warp shuffles.  P . V: a thread
 //   owns one 16-byte column of V for 4 heads and a subset of the keys, so
 //   each read and widening of V serves 4 heads (inside a block the CUDA
 //   cores' instruction rate, not the bytes, is the limit); the key subsets
-//   are added in shared memory in a fixed order.
+//   are added in shared memory in a fixed order (when the (column, head
+//   set) pairs do not divide the 256 threads, the threads left over sit
+//   out), and a thread writes one float4 of the block's GB x hd output, or
+//   two at GB 8 and hd 192.
 // - The spans merge in the same launch, in two levels of atomic tickets:
 //   each block writes its unnormalised (acc, m, l); the last of a set of 8
 //   spans to arrive merges the set, the last set the group.  A merge is an
@@ -59,6 +65,29 @@ constexpr int kPvHeads = 4;      // heads a thread sums in P . V
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
+// The work split of a block for storage type T, head dim HD and GB query
+// heads.
+template <typename T, int HD, int GB>
+struct Layout {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // a piece
+  static constexpr int kPieces = HD / kVec;       // 16-byte pieces a row
+  // lanes a key (a power of two, 4 .. 32) and pieces a lane (1 or 2)
+  static constexpr int kLPK = pow2_at_least(kPieces < 32 ? kPieces : 32);
+  static constexpr int kPPL = (kPieces + kLPK - 1) / kLPK;
+  static constexpr int kHPT = GB < kPvHeads ? GB : kPvHeads;  // P . V heads
+  static constexpr int kPairs = kPieces * (GB / kHPT);  // (piece, head set)
+  static constexpr int kKG = kThreads / kPairs;   // P . V key groups
+  static constexpr int kSlots4 = GB * HD / 4;     // float4 output slots
+  static constexpr int kSPT = (kSlots4 + kThreads - 1) / kThreads;
+  static_assert(HD % kVec == 0 && kKG >= 1, "head dim");
+};
+
 // Shared memory of a block: the scores [GB][kChunk + 1] floats, then one
 // area that holds the staged chunks' K and V rows and then the P . V key
 // groups' sums.
@@ -70,9 +99,8 @@ __host__ __device__ constexpr int score_bytes() {
 template <typename T, int HD, int GB>
 constexpr int smem_bytes() {
   constexpr int kKV = 2 * kStages * kChunk * HD * static_cast<int>(sizeof(T));
-  constexpr int kHPT = GB < kPvHeads ? GB : kPvHeads;
-  // [kThreads][kHPT][16 bytes of T, widened to f32]
-  constexpr int kRed = kThreads * kHPT * 16 / static_cast<int>(sizeof(T)) * 4;
+  // [kKG][GB][HD] floats
+  constexpr int kRed = Layout<T, HD, GB>::kKG * GB * HD * 4;
   return score_bytes<GB>() + (kKV > kRed ? kKV : kRed);
 }
 
@@ -176,15 +204,19 @@ __device__ __forceinline__ void merge_states(const float* acc,
 template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(kThreads, 2)
 fa_decode_kernel(const DecArgs a) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));   // per 16 bytes
-  constexpr int kLPK = HD / kVec;          // lanes a key (4 .. 32)
+  using Lay = Layout<T, HD, GB>;
+  constexpr int kVec = Lay::kVec;
+  constexpr int kPieces = Lay::kPieces;
+  constexpr int kLPK = Lay::kLPK;
+  constexpr int kPPL = Lay::kPPL;
   constexpr int kKPW = 32 / kLPK;          // keys a warp pass
   constexpr int kKPP = kWarps * kKPW;      // keys a block pass
   constexpr int kNHA = GB > kLPK ? GB / kLPK : 1;   // heads a lane ends with
-  constexpr int kHPT = GB < kPvHeads ? GB : kPvHeads;   // P . V heads a thread
-  constexpr int kPairs = kLPK * (GB / kHPT);   // (column, head set) pairs
-  constexpr int kKG = kThreads / kPairs;       // P . V key groups
-  constexpr int kSlots4 = GB * HD / 4;     // float4 output slots (<= kThreads)
+  constexpr int kHPT = Lay::kHPT;
+  constexpr int kPairs = Lay::kPairs;
+  constexpr int kKG = Lay::kKG;
+  constexpr int kSlots4 = Lay::kSlots4;
+  constexpr int kSPT = Lay::kSPT;
   constexpr int kPS = kChunk + 1;          // padded score row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* const ps = reinterpret_cast<float*>(smem_raw);        // [GB][kPS]
@@ -204,22 +236,30 @@ fa_decode_kernel(const DecArgs a) {
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  // scores: this lane's 16-byte column of the query heads, in float32
-  const int col = (lane % kLPK) * kVec;
-  float qv[GB][kVec];
+  // scores: this lane's 16-byte pieces (lk, lk + kLPK) of the query heads,
+  // in float32; zeros for pieces past the row
+  const int lk = lane % kLPK;
+  float qv[GB][kPPL][kVec];
 #pragma unroll
   for (int j = 0; j < GB; ++j) {
-    if (j < nh) {
-      widen(static_cast<const T*>(a.q) + b * a.q_sb + (h0 + j) * a.q_sh + col,
-             qv[j]);
-    } else {
 #pragma unroll
-      for (int u = 0; u < kVec; ++u) qv[j][u] = 0.f;
+    for (int pp = 0; pp < kPPL; ++pp) {
+      const int piece = lk + pp * kLPK;
+      if (j < nh && piece < kPieces) {
+        widen(static_cast<const T*>(a.q) + b * a.q_sb + (h0 + j) * a.q_sh
+                  + piece * kVec,
+              qv[j][pp]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) qv[j][pp][u] = 0.f;
+      }
     }
   }
   // P . V: this thread's 16-byte column, its kHPT heads and its key group
+  // (threads past kKG groups of kPairs sit out)
   const int pair = tid % kPairs, kg = tid / kPairs;
-  const int pcol = (pair % kLPK) * kVec, ph0 = (pair / kLPK) * kHPT;
+  const bool pv_live = kg < kKG;
+  const int pcol = (pair % kPieces) * kVec, ph0 = (pair / kPieces) * kHPT;
   float acc[kHPT][kVec];
 #pragma unroll
   for (int i = 0; i < kHPT; ++i)
@@ -235,13 +275,13 @@ fa_decode_kernel(const DecArgs a) {
     const int c0 = k_begin + c * kChunk;
     const int nk = c < n_chunks ? min(kChunk, k_end - c0) : 0;
     const int st = (c % kStages) * kChunk * HD;
-    for (int e = tid; e < nk * kLPK; e += kThreads) {
-      const int r = e / kLPK, col16 = (e % kLPK) * kVec;
+    for (int e = tid; e < nk * kPieces; e += kThreads) {
+      const int r = e / kPieces, col16 = (e % kPieces) * kVec;
       cp_async16(ks + st + r * HD + col16, kp + (c0 + r) * a.k_ss + col16);
     }
     cp_async_commit();
-    for (int e = tid; e < nk * kLPK; e += kThreads) {
-      const int r = e / kLPK, col16 = (e % kLPK) * kVec;
+    for (int e = tid; e < nk * kPieces; e += kThreads) {
+      const int r = e / kPieces, col16 = (e % kPieces) * kVec;
       cp_async16(vs + st + r * HD + col16, vp + (c0 + r) * a.v_ss + col16);
     }
     cp_async_commit();
@@ -259,20 +299,25 @@ fa_decode_kernel(const DecArgs a) {
     // scores of every head of the group against the chunk's keys
     for (int j0 = warp * kKPW; j0 < nk; j0 += kKPP) {   // warp-uniform
       const int j = j0 + lane / kLPK;
-      float kf[kVec];
-      if (j < nk) {
-        widen(kc + j * HD + col, kf);
-      } else {
-#pragma unroll
-        for (int u = 0; u < kVec; ++u) kf[u] = 0.f;
-      }
       float part[GB];
 #pragma unroll
-      for (int h = 0; h < GB; ++h) {
-        float d = 0.f;
+      for (int h = 0; h < GB; ++h) part[h] = 0.f;
 #pragma unroll
-        for (int u = 0; u < kVec; ++u) d = fmaf(qv[h][u], kf[u], d);
-        part[h] = d;
+      for (int pp = 0; pp < kPPL; ++pp) {
+        const int piece = lk + pp * kLPK;
+        float kf[kVec];
+        if (j < nk && piece < kPieces) {
+          widen(kc + j * HD + piece * kVec, kf);
+        } else {
+#pragma unroll
+          for (int u = 0; u < kVec; ++u) kf[u] = 0.f;
+        }
+#pragma unroll
+        for (int h = 0; h < GB; ++h) {
+#pragma unroll
+          for (int u = 0; u < kVec; ++u)
+            part[h] = fmaf(qv[h][pp][u], kf[u], part[h]);
+        }
       }
       int head = 0;
       bool writer = true;
@@ -316,58 +361,77 @@ fa_decode_kernel(const DecArgs a) {
 
     // acc = acc * alpha + P . V over this thread's keys: one read and
     // widening of V serves kHPT heads
-#pragma unroll
-    for (int i = 0; i < kHPT; ++i) {
-      const float al = al_s[ph0 + i];
-#pragma unroll
-      for (int u = 0; u < kVec; ++u) acc[i][u] *= al;
-    }
-    for (int j = kg; j < nk; j += kKG) {
-      float vf[kVec];
-      widen(vc + j * HD + pcol, vf);
+    if (pv_live) {
 #pragma unroll
       for (int i = 0; i < kHPT; ++i) {
-        const float p = ps[(ph0 + i) * kPS + j];
+        const float al = al_s[ph0 + i];
 #pragma unroll
-        for (int u = 0; u < kVec; ++u) acc[i][u] = fmaf(p, vf[u], acc[i][u]);
+        for (int u = 0; u < kVec; ++u) acc[i][u] *= al;
+      }
+      for (int j = kg; j < nk; j += kKG) {
+        float vf[kVec];
+        widen(vc + j * HD + pcol, vf);
+#pragma unroll
+        for (int i = 0; i < kHPT; ++i) {
+          const float p = ps[(ph0 + i) * kPS + j];
+#pragma unroll
+          for (int u = 0; u < kVec; ++u) acc[i][u] = fmaf(p, vf[u], acc[i][u]);
+        }
       }
     }
     __syncthreads();                         // stage and scores consumed
     stage_chunk(c + kStages);
   }
 
-  // add the key groups' sums in a fixed order (in the K/V area): thread u
-  // ends with float4 output slot u, head sh, columns sd .. sd + 3
+  // add the key groups' sums in a fixed order (in the K/V area): thread
+  // tid ends with the float4 output slots tid + i * kThreads, each one
+  // head sh and columns sd .. sd + 3
   float* const red = reinterpret_cast<float*>(work);   // [kKG][GB][HD]
   cp_async_wait<0>();                        // (the empty groups)
+  if (pv_live) {
 #pragma unroll
-  for (int i = 0; i < kHPT; ++i)
+    for (int i = 0; i < kHPT; ++i)
 #pragma unroll
-    for (int u = 0; u < kVec; u += 4)
-      *reinterpret_cast<float4*>(red + (kg * GB + ph0 + i) * HD + pcol + u) =
-          make_float4(acc[i][u], acc[i][u + 1], acc[i][u + 2], acc[i][u + 3]);
+      for (int u = 0; u < kVec; u += 4)
+        *reinterpret_cast<float4*>(red + (kg * GB + ph0 + i) * HD + pcol
+                                   + u) =
+            make_float4(acc[i][u], acc[i][u + 1], acc[i][u + 2],
+                        acc[i][u + 3]);
+  }
   __syncthreads();
-  const bool has_slot = tid < kSlots4;
-  const int sh = has_slot ? tid / (HD / 4) : 0, sd = (tid % (HD / 4)) * 4;
-  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (has_slot) {
-    for (int g = 0; g < kKG; ++g) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(red + (g * GB + sh) * HD + sd);
-      o.x += x.x;
-      o.y += x.y;
-      o.z += x.z;
-      o.w += x.w;
+  bool has[kSPT];
+  int sh[kSPT], sd[kSPT];
+  float4 o[kSPT];
+#pragma unroll
+  for (int i = 0; i < kSPT; ++i) {
+    const int u = tid + i * kThreads;
+    has[i] = u < kSlots4;
+    sh[i] = has[i] ? u / (HD / 4) : 0;
+    sd[i] = (u % (HD / 4)) * 4;
+    o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (has[i]) {
+      for (int g = 0; g < kKG; ++g) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            red + (g * GB + sh[i]) * HD + sd[i]);
+        o[i].x += x.x;
+        o[i].y += x.y;
+        o[i].z += x.z;
+        o[i].w += x.w;
+      }
     }
   }
-  T* const op = static_cast<T*>(a.out) + b * a.o_sb + (h0 + sh) * a.o_sh + sd;
-  const bool writes_out = has_slot && sh < nh;
+  auto store_out = [&](int i, float L) {
+    if (has[i] && sh[i] < nh) {
+      const float d = fmaxf(L, 1e-30f);
+      store4(static_cast<T*>(a.out) + b * a.o_sb + (h0 + sh[i]) * a.o_sh
+                 + sd[i],
+             make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d));
+    }
+  };
 
   if (a.n_span == 1) {                       // one span: the output itself
-    if (writes_out) {
-      const float d = fmaxf(l_s[sh], 1e-30f);
-      store4(op, make_float4(o.x / d, o.y / d, o.z / d, o.w / d));
-    }
+#pragma unroll
+    for (int i = 0; i < kSPT; ++i) store_out(i, l_s[sh[i]]);
     return;
   }
 
@@ -378,14 +442,23 @@ fa_decode_kernel(const DecArgs a) {
   const int n_set = (a.n_span + kFan - 1) / kFan, set = span / kFan;
   const int set_size = min(kFan, a.n_span - set * kFan);
   int* const set_ticket = a.tickets + groups + grp * n_set + set;
-  // store this block's state, then draw a ticket; true for the last block
-  auto publish = [&](long long idx, float M, float L, int* ticket,
-                     int count) {
-    if (has_slot) {
-      *reinterpret_cast<float4*>(a.part_acc + (idx * GB + sh) * HD + sd) = o;
-      if (sd == 0) {
-        a.part_ml[2 * (idx * GB + sh)] = M;
-        a.part_ml[2 * (idx * GB + sh) + 1] = L;
+  float M[kSPT], L[kSPT];
+#pragma unroll
+  for (int i = 0; i < kSPT; ++i) {
+    M[i] = m_s[sh[i]];
+    L[i] = l_s[sh[i]];
+  }
+  // store this block's states, then draw a ticket; true for the last block
+  auto publish = [&](long long idx, int* ticket, int count) {
+#pragma unroll
+    for (int i = 0; i < kSPT; ++i) {
+      if (has[i]) {
+        *reinterpret_cast<float4*>(a.part_acc + (idx * GB + sh[i]) * HD
+                                   + sd[i]) = o[i];
+        if (sd[i] == 0) {
+          a.part_ml[2 * (idx * GB + sh[i])] = M[i];
+          a.part_ml[2 * (idx * GB + sh[i]) + 1] = L[i];
+        }
       }
     }
     __syncthreads();
@@ -393,34 +466,33 @@ fa_decode_kernel(const DecArgs a) {
     __syncthreads();
     return last_s != 0;
   };
-  if (!publish(grp * a.n_span + span, m_s[sh], l_s[sh], set_ticket,
-               set_size))
-    return;
-  float M = 0.f, L = 0.f;
-  if (has_slot)
-    merge_states<GB, HD>(a.part_acc, a.part_ml, grp * a.n_span + set * kFan,
-                         set_size, sh, sd, M, L, o);
+  if (!publish(grp * a.n_span + span, set_ticket, set_size)) return;
+#pragma unroll
+  for (int i = 0; i < kSPT; ++i)
+    if (has[i])
+      merge_states<GB, HD>(a.part_acc, a.part_ml, grp * a.n_span + set * kFan,
+                           set_size, sh[i], sd[i], M[i], L[i], o[i]);
   if (tid == 0) *set_ticket = 0;             // ready for the next launch
   if (n_set > 1) {
-    if (!publish(groups * a.n_span + grp * n_set + set, M, L,
-                 a.tickets + grp, n_set))
+    if (!publish(groups * a.n_span + grp * n_set + set, a.tickets + grp,
+                 n_set))
       return;
-    if (has_slot)
-      merge_states<GB, HD>(a.part_acc, a.part_ml,
-                           groups * a.n_span + grp * n_set, n_set, sh, sd, M,
-                           L, o);
+#pragma unroll
+    for (int i = 0; i < kSPT; ++i)
+      if (has[i])
+        merge_states<GB, HD>(a.part_acc, a.part_ml,
+                             groups * a.n_span + grp * n_set, n_set, sh[i],
+                             sd[i], M[i], L[i], o[i]);
     if (tid == 0) a.tickets[grp] = 0;
   }
-  if (writes_out) {
-    const float d = fmaxf(L, 1e-30f);
-    store4(op, make_float4(o.x / d, o.y / d, o.z / d, o.w / d));
-  }
+#pragma unroll
+  for (int i = 0; i < kSPT; ++i) store_out(i, L[i]);
 }
 
 template <typename T, int HD, int GB>
 int launch(const DecArgs& a, int B, int KVH, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<T, HD, GB>();
-  // above 48 KB (f32 at hd 128) only after this opt-in
+  // above 48 KB (f32 at hd 128 and up) only after this opt-in
   cudaError_t err = cudaFuncSetAttribute(
       fa_decode_kernel<T, HD, GB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -447,7 +519,9 @@ int launch_hd(const DecArgs& a, int B, int KVH, int hd, int gb,
   switch (hd) {
     case 32: return launch_gb<T, 32>(a, B, KVH, gb, st);
     case 64: return launch_gb<T, 64>(a, B, KVH, gb, st);
+    case 96: return launch_gb<T, 96>(a, B, KVH, gb, st);
     case 128: return launch_gb<T, 128>(a, B, KVH, gb, st);
+    case 192: return launch_gb<T, 192>(a, B, KVH, gb, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -460,8 +534,8 @@ using namespace fedsikd;
 // q (B, 1, H, hd), k/v (B, S, KVH, hd), out (B, 1, H, hd): strides in
 // elements (q's and out's batch and head strides), the hd axis contiguous;
 // q, k, v and out 16-byte aligned with strides in whole 16-byte units.
-// hd in {32, 64, 128}; gb (query heads a block) in {1, 2, 4, 8}; n_gblk =
-// ceil(G / gb), G = H / KVH.  The keys [lo, S) are cut into n_span spans of
+// hd in {32, 64, 96, 128, 192}; gb (query heads a block) in {1, 2, 4, 8};
+// n_gblk = ceil(G / gb), G = H / KVH.  The keys [lo, S) are cut into n_span spans of
 // span_len keys (n_span <= 512, no span empty).  With n_span > 1, with
 // groups = B * KVH * n_gblk and n_set = ceil(n_span / 8): part_acc and
 // part_ml hold groups * (n_span + n_set) * gb * hd and ... * gb * 2 floats,

@@ -22,14 +22,21 @@
 //
 // The design:
 // - A block of 4 warps owns 64 query positions of one head, 16 a warp,
-//   with the Q fragments in registers (loaded once by ldmatrix).  A thread
-//   holds 64 f32 of O, 32 of S and 32 registers of Q at hd 128 (249
-//   registers in all, by ptxas), so an SM runs 8 warps whether a block has
-//   4 or 8; 4 warps and 64 rows give twice the blocks for the causal tail
-//   and half the wasted work on each diagonal tile.
+//   with the Q fragments in registers (loaded once by ldmatrix) up to hd
+//   128.  A thread holds 64 f32 of O, 32 of S and 32 registers of Q at hd
+//   128 (249 registers in all, by ptxas), so an SM runs 8 warps whether a
+//   block has 4 or 8; 4 warps and 64 rows give twice the blocks for the
+//   causal tail and half the wasted work on each diagonal tile.  At hd 192
+//   O alone is 96 f32 a thread, and Q in registers (48 more) would pass
+//   the 255-register limit: there each k-step of Q K^T reads its Q
+//   fragment from shared memory (where Q stays for the whole block) by
+//   one more ldmatrix, and a 64-key tile is walked in two parts of 32
+//   keys, each its own online-softmax step, so S takes 16 registers.
 // - K and V tiles of 64 keys go into shared memory by cp.async in two
 //   stages (the next tile's copy in flight while the current one is used),
-//   16-byte chunks XOR-swizzled so that every ldmatrix is conflict-free.
+//   16-byte chunks XOR-swizzled so that every ldmatrix is conflict-free
+//   (`swz`; hd 96's 12 chunks a row take their own pattern).  At hd 192
+//   the tiles and Q take 120 KB of shared memory, one block an SM.
 // - S = Q K^T by mma.sync.m16n8k16 (bf16 in, f32 sums): each product of
 //   two bf16 values is exact in f32.  `scale` multiplies the f32 scores
 //   after the product, as the plain version does.
@@ -123,15 +130,29 @@ __device__ __forceinline__ float split_hi(float p) {
 }
 
 // Element offset of 16-byte chunk `chunk` of row `row` in a (rows, HD)
-// bf16 tile: the chunk index is XOR-ed with bits of the row, so the 8 rows
-// one ldmatrix phase reads at one logical chunk land in 8 distinct bank
-// groups (rows of 256 or 128 bytes: row & 7; rows of 64 bytes, two to a
-// 128-byte line: (row >> 1) & 3).
+// bf16 tile: the chunk index is XOR-ed with bits of the row, so the 8
+// consecutive rows (from a multiple of 8) that one ldmatrix phase reads at
+// one logical chunk land in 8 distinct 16-byte bank groups of the 128-byte
+// line, and the chunk never leaves its row:
+// - 8, 16 or 24 chunks a row (hd 64, 128, 192): chunk ^ (row & 7), within
+//   each aligned group of 8 chunks;
+// - 12 chunks (hd 96, rows of 192 bytes, so row r starts at bank group
+//   4 (r & 1)): chunks 0-7 as above, chunks 8-11 ^ ((row >> 1) & 3), which
+//   stays in 8-11 (row & 7 would send them to 8-15, past the row);
+// - 4 chunks (hd 32, two rows a line): chunk ^ ((row >> 1) & 3).
 template <int HD>
 __device__ __forceinline__ int swz(int row, int chunk) {
   constexpr int kCPR = HD / 8;
-  const int x = kCPR >= 8 ? (row & 7) : ((row >> 1) & 3);
-  return row * HD + ((chunk ^ x) << 3);
+  static_assert(kCPR % 8 == 0 || kCPR == 12 || kCPR == 4,
+                "no swizzle for this head dim");
+  int c;
+  if constexpr (kCPR % 8 == 0)
+    c = chunk ^ (row & 7);
+  else if constexpr (kCPR == 12)
+    c = chunk < 8 ? chunk ^ (row & 7) : chunk ^ ((row >> 1) & 3);
+  else
+    c = chunk ^ ((row >> 1) & 3);
+  return row * HD + (c << 3);
 }
 
 template <int HD>
@@ -140,6 +161,11 @@ fa_tc_kernel(const TcArgs a) {
   constexpr int kKS = HD / 16;   // k-steps of Q K^T
   constexpr int kNT = HD / 8;    // 8-column tiles of O
   constexpr int kCPR = HD / 8;   // 16-byte chunks a row
+  constexpr bool kQRegs = HD <= 128;   // Q's fragments held in registers
+  // a key tile is walked in kSub parts of kSN keys (two at hd 192, which
+  // halves S's registers)
+  constexpr int kSub = HD > 128 ? 2 : 1;
+  constexpr int kSN = kBN / kSub;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* const qs = reinterpret_cast<bf16*>(smem_raw);   // [kBM][HD]
   bf16* const ks = qs + kBM * HD;                       // [2][kBN][HD]
@@ -191,7 +217,7 @@ fa_tc_kernel(const TcArgs a) {
   load_tile(lo, 0);
   cp_async_commit();
 
-  unsigned qf[kKS][4];
+  unsigned qf[kQRegs ? kKS : 1][4];
   float o[kNT][4];
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
@@ -202,115 +228,128 @@ fa_tc_kernel(const TcArgs a) {
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
 
   for (int i = 0; i < n_tiles; ++i) {
-    const int kb = lo + i * kBN;
-    if (i + 1 < n_tiles) load_tile(kb + kBN, (i + 1) & 1);
+    if (i + 1 < n_tiles) load_tile(lo + (i + 1) * kBN, (i + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();                          // tile i (and Q) landed
-    if (i == 0) {
+    // this warp's A fragment of Q for k-step s (16 rows x 16 columns)
+    auto load_q = [&](int s, unsigned* r) {
+      ldsm_x4(smem_addr(qs + swz<HD>(warp * 16 + (lane & 7)
+                                         + ((lane >> 3) & 1) * 8,
+                                     2 * s + (lane >> 4))),
+              r);
+    };
+    if constexpr (kQRegs) {
+      if (i == 0) {
 #pragma unroll
-      for (int s = 0; s < kKS; ++s)
-        ldsm_x4(smem_addr(qs + swz<HD>(warp * 16 + (lane & 7)
-                                           + ((lane >> 3) & 1) * 8,
-                                       2 * s + (lane >> 4))),
-                qf[s]);
-    }
-    const bf16* kt = ks + (i & 1) * kBN * HD;
-    const bf16* vt = vs + (i & 1) * kBN * HD;
-
-    // S = Q K^T: 16 rows x 64 keys a warp, 8 tiles of 8 keys
-    float sc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-#pragma unroll
-    for (int s = 0; s < kKS; ++s) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned r[4];
-        ldsm_x4(smem_addr(kt + swz<HD>(np * 16 + (lane & 7) + (lane >> 4) * 8,
-                                       2 * s + ((lane >> 3) & 1))),
-                r);
-        mma_bf16(sc[2 * np], qf[s], r[0], r[1]);
-        mma_bf16(sc[2 * np + 1], qf[s], r[2], r[3]);
+        for (int s = 0; s < kKS; ++s) load_q(s, qf[s]);
       }
     }
+    // the tile in kSub parts of kSN keys, each its own online-softmax step
+#pragma unroll 1
+    for (int sub = 0; sub < kSub; ++sub) {
+      const int kb = lo + i * kBN + sub * kSN;
+      // (a part starts at a multiple of 8 rows: the swizzle is unchanged)
+      const bf16* kt = ks + ((i & 1) * kBN + sub * kSN) * HD;
+      const bf16* vt = vs + ((i & 1) * kBN + sub * kSN) * HD;
 
-    // scale, mask (only on tiles that need it), online softmax
-    const bool edge =
-        kb + kBN > a.S ||
-        (a.causal && (kb + kBN - 1 > t0 + off ||
-                      (a.window > 0 && kb <= t1 + off - a.window)));
-    float mx0 = m0, mx1 = m1;
+      // S = Q K^T: 16 rows x kSN keys a warp, tiles of 8 keys
+      float sc[kSN / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kSN / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[n][e] * a.scale;
-        if (edge) {
-          const int key = kb + n * 8 + 2 * tq + (e & 1);
-          const int lim = (e < 2 ? row0 : row1) + off;   // last key seen
-          if (key >= a.S)
-            x = -INFINITY;                   // no such key: weight 0
-          else if (a.causal &&
-                   (key > lim || (a.window > 0 && key <= lim - a.window)))
-            x = kNeg;
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kKS; ++s) {
+        const unsigned* qa = qf[kQRegs ? s : 0];
+        if constexpr (!kQRegs) load_q(s, qf[0]);
+#pragma unroll
+        for (int np = 0; np < kSN / 16; ++np) {
+          unsigned r[4];
+          ldsm_x4(smem_addr(kt + swz<HD>(np * 16 + (lane & 7)
+                                             + (lane >> 4) * 8,
+                                         2 * s + ((lane >> 3) & 1))),
+                  r);
+          mma_bf16(sc[2 * np], qa, r[0], r[1]);
+          mma_bf16(sc[2 * np + 1], qa, r[2], r[3]);
         }
-        sc[n][e] = x;
       }
-      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
-    const float al0 = ex2((m0 - mx0) * kLog2e);
-    const float al1 = ex2((m1 - mx1) * kLog2e);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= al0;
-    l1 *= al1;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      o[n][0] *= al0;
-      o[n][1] *= al0;
-      o[n][2] *= al1;
-      o[n][3] *= al1;
-    }
 
-    // O += P_hi V + P_lo V, 16 keys a k-step
+      // scale, mask (only on parts that need it), online softmax
+      const bool edge =
+          kb + kSN > a.S ||
+          (a.causal && (kb + kSN - 1 > t0 + off ||
+                        (a.window > 0 && kb <= t1 + off - a.window)));
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      unsigned ph[4], pl[4];
+      for (int n = 0; n < kSN / 8; ++n) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float* c = sc[2 * kk + half];
-        const float p0 = ex2((c[0] - m0) * kLog2e);
-        const float p1 = ex2((c[1] - m0) * kLog2e);
-        const float p2 = ex2((c[2] - m1) * kLog2e);
-        const float p3 = ex2((c[3] - m1) * kLog2e);
-        l0 += p0 + p1;
-        l1 += p2 + p3;
-        const float h0 = split_hi(p0), h1 = split_hi(p1);
-        const float h2 = split_hi(p2), h3 = split_hi(p3);
-        ph[2 * half] = pack_bf16(h0, h1);             // row g
-        ph[2 * half + 1] = pack_bf16(h2, h3);         // row g + 8
-        pl[2 * half] = pack_bf16(p0 - h0, p1 - h1);
-        pl[2 * half + 1] = pack_bf16(p2 - h2, p3 - h3);
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[n][e] * a.scale;
+          if (edge) {
+            const int key = kb + n * 8 + 2 * tq + (e & 1);
+            const int lim = (e < 2 ? row0 : row1) + off;   // last key seen
+            if (key >= a.S)
+              x = -INFINITY;                   // no such key: weight 0
+            else if (a.causal &&
+                     (key > lim || (a.window > 0 && key <= lim - a.window)))
+              x = kNeg;
+          }
+          sc[n][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
       }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+      const float al0 = ex2((m0 - mx0) * kLog2e);
+      const float al1 = ex2((m1 - mx1) * kLog2e);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= al0;
+      l1 *= al1;
 #pragma unroll
-      for (int dp = 0; dp < kNT / 2; ++dp) {
-        unsigned r[4];
-        ldsm_x4_trans(smem_addr(vt + swz<HD>(kk * 16 + (lane & 7)
-                                                 + ((lane >> 3) & 1) * 8,
-                                             2 * dp + (lane >> 4))),
-                      r);
-        mma_bf16(o[2 * dp], ph, r[0], r[1]);
-        mma_bf16(o[2 * dp], pl, r[0], r[1]);
-        mma_bf16(o[2 * dp + 1], ph, r[2], r[3]);
-        mma_bf16(o[2 * dp + 1], pl, r[2], r[3]);
+      for (int n = 0; n < kNT; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
+
+      // O += P_hi V + P_lo V, 16 keys a k-step
+#pragma unroll
+      for (int kk = 0; kk < kSN / 16; ++kk) {
+        unsigned ph[4], pl[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float* c = sc[2 * kk + half];
+          const float p0 = ex2((c[0] - m0) * kLog2e);
+          const float p1 = ex2((c[1] - m0) * kLog2e);
+          const float p2 = ex2((c[2] - m1) * kLog2e);
+          const float p3 = ex2((c[3] - m1) * kLog2e);
+          l0 += p0 + p1;
+          l1 += p2 + p3;
+          const float h0 = split_hi(p0), h1 = split_hi(p1);
+          const float h2 = split_hi(p2), h3 = split_hi(p3);
+          ph[2 * half] = pack_bf16(h0, h1);             // row g
+          ph[2 * half + 1] = pack_bf16(h2, h3);         // row g + 8
+          pl[2 * half] = pack_bf16(p0 - h0, p1 - h1);
+          pl[2 * half + 1] = pack_bf16(p2 - h2, p3 - h3);
+        }
+#pragma unroll
+        for (int dp = 0; dp < kNT / 2; ++dp) {
+          unsigned r[4];
+          ldsm_x4_trans(smem_addr(vt + swz<HD>(kk * 16 + (lane & 7)
+                                                   + ((lane >> 3) & 1) * 8,
+                                               2 * dp + (lane >> 4))),
+                        r);
+          mma_bf16(o[2 * dp], ph, r[0], r[1]);
+          mma_bf16(o[2 * dp], pl, r[0], r[1]);
+          mma_bf16(o[2 * dp + 1], ph, r[2], r[3]);
+          mma_bf16(o[2 * dp + 1], pl, r[2], r[3]);
+        }
       }
     }
     __syncthreads();                          // done reading this stage
@@ -336,7 +375,7 @@ fa_tc_kernel(const TcArgs a) {
 template <int HD>
 int launch(const TcArgs& a, int B, cudaStream_t stream) {
   constexpr int kSmem = (kBM + 4 * kBN) * HD * static_cast<int>(sizeof(bf16));
-  // above 48 KB (hd 128) only after this opt-in
+  // above 48 KB (hd 96 and up) only after this opt-in; 120 KB at hd 192
   cudaError_t err = cudaFuncSetAttribute(
       fa_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -353,8 +392,8 @@ using namespace fedsikd;
 // bf16 q (B, T, H, hd), k/v (B, S, KVH, hd), out (B, T, H, hd): strides in
 // elements, the hd axis contiguous; q, k and v 16-byte aligned with
 // strides in whole 16-byte units (the cp.async copies), out 4-byte
-// aligned.  hd in {32, 64, 128}; H % KVH == 0.  Returns cudaGetLastError()
-// after the launch.
+// aligned.  hd in {32, 64, 96, 128, 192}; H % KVH == 0.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int fedsikd_flash_attention_tc(
     const void* q, const void* k, const void* v, void* out, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_ss,
@@ -385,7 +424,9 @@ extern "C" int fedsikd_flash_attention_tc(
   switch (hd) {
     case 32: return launch<32>(a, B, st);
     case 64: return launch<64>(a, B, st);
+    case 96: return launch<96>(a, B, st);
     case 128: return launch<128>(a, B, st);
+    case 192: return launch<192>(a, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -48,7 +48,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30          # the TPU kernel's mask value
-HEAD_DIMS = (32, 64, 128)
+# the head dims every kernel is built for (each a template instance of the
+# three sources; any other, 48 say, raises)
+HEAD_DIMS = (32, 64, 96, 128, 192)
 DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("v1", "tensor_core", "decode")
 # layout constants of csrc/flash_attention.cu (kRows, kBK)

@@ -15,8 +15,11 @@ compiled.  The training and distillation steps update ``(params,
 opt_state)`` in place (``Optimizer.update_``), the port's form of the
 JAX steps' ``donate_argnums = (0, 1)``; the teacher is only read.  The
 optimizers take flat dicts, so the steps flatten the nested LM params
-with dotted keys (``tree.flatten``) at their boundary.  The audio
-encoder-decoder's steps raise (ROADMAP Queue 1 item 10.4).
+with dotted keys (``tree.flatten``) at their boundary.  Every step serves
+or trains the dense, VLM-prefix and MoE decoders (GQA or MLA attention;
+a MoE model's loss carries its load-balance aux); the audio
+encoder-decoder's steps raise (ROADMAP Queue 1 item 10.4), and the model
+raises for the other unported families.
 """
 from __future__ import annotations
 

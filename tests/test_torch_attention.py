@@ -50,6 +50,11 @@ def _close(got, want, dtype):
     (2, 8, 2, 128, 128, 64),
     (1, 4, 2, 100, 100, 32),        # the JAX wrapper's padding path
     (2, 4, 4, 64, 256, 64),         # cross-length, right-aligned
+    # head dims 96 and 192 (nemotron-4-340b's smoke and full head dim)
+    (1, 4, 2, 100, 100, 96),
+    (1, 12, 1, 64, 64, 96),         # a GQA group of 12
+    (1, 4, 2, 64, 256, 192),
+    (2, 7, 1, 64, 64, 192),         # a GQA group of 7 (arctic-480b's)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_the_jax_kernel(B, H, KVH, T, S, hd, dtype):
@@ -84,6 +89,9 @@ def _ref(jq, jk, jv, **kw):
     (2, 16, 2, 1, 97, 128, 0),      # decode: one query over a cache prefix
     (2, 8, 8, 1, 1, 64, 0),
     (1, 4, 2, 96, 40, 64, 0),       # T > S: the first 56 queries see no key
+    (1, 12, 1, 1, 200, 96, 0),      # decode at head dims 96 and 192
+    (2, 16, 2, 1, 97, 192, 0),
+    (1, 4, 2, 64, 200, 192, 48),    # unequal pads with a window, hd 192
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_the_reference_where_jax_pads(
@@ -129,6 +137,13 @@ def test_kernel_grid_plan(B, T, S, H, KVH, want):
     assert p["split_len"] % fa.BLOCK_K == 0
     assert p["n_split"] * p["split_len"] >= S
     assert (p["n_split"] - 1) * p["split_len"] < S   # no empty span
+
+
+def test_head_dims_the_kernels_take():
+    """Every kernel is built for head dims 32, 64, 96, 128 and 192 (an
+    explicit tuple: 48, for one, raises on the card)."""
+    assert fa.HEAD_DIMS == (32, 64, 96, 128, 192)
+    assert 48 not in fa.HEAD_DIMS
 
 
 def test_wrapper_checks_shapes():

@@ -593,6 +593,33 @@ def test_flash_attention_matches_plain(dev, shape, dtype):
         name: int(name == kind) for name in fa.VARIANTS}
 
 
+@pytest.mark.parametrize("hd", [96, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,T,S,window", [
+    (1, 4, 2, 100, 100, 0),         # ragged T (v1 / tensor_core)
+    (1, 12, 1, 64, 256, 0),         # cross-length, GQA group of 12
+    (1, 2, 2, 128, 128, 32),        # a window
+    (1, 7, 1, 1, 97, 0),            # decode, group of 7 (a padded head)
+    (2, 16, 2, 1, 4097, 0),         # decode over many spans (the merge)
+])
+def test_flash_attention_new_head_dims_match_plain(dev, hd, dtype, B, H,
+                                                   KVH, T, S, window):
+    """Head dims 96 and 192 in each kernel (``v1`` for float32 T > 1,
+    ``tensor_core`` for bf16 T > 1, ``decode`` for T = 1) against the
+    plain version, at ``chip_smoke.FA_TOL``."""
+    shape = (B, H, KVH, T, S, hd, window)
+    q, k, v = chip_smoke._fa_inputs(shape, dtype, sum(shape), dev)
+    reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    rtol, atol = chip_smoke.FA_TOL[str(dtype)[6:]]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    kind = fa.variant(dtype, T)
+    assert fa.flash_attention.variant_launches == {
+        name: int(name == kind) for name in fa.VARIANTS}
+
+
 def test_flash_attention_fully_masked_rows_average_v(dev):
     """T > S, right-aligned: the first T - S queries see no key and, with
     the -1e30 mask, average V over all S keys, as the reference does."""
@@ -713,6 +740,34 @@ def test_lm_prefill_and_decode_on_the_card_match_cpu(dev):
         "v1": cfg.num_layers, "tensor_core": 0,
         "decode": cfg.num_layers * extra}
     print(f"lm card-vs-cpu max abs gap {float((got - want).abs().max())}")
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch,flash_layers", [("deepseek-v2-236b", 0),
+                                                ("arctic-480b", 2)])
+def test_moe_prefill_and_decode_on_the_card_match_cpu(dev, arch,
+                                                      flash_layers):
+    """The smoke-size MoE models in float32 (deepseek's MLA is plain
+    torch and launches no flash kernel; arctic's GQA does): a 24-token
+    prefill and 8 decode steps on the card against the same calls on the
+    CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    T, extra = 24, 8
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (2, T + extra)))
+    params = tf.init_lm(4, cfg, device="cpu")
+    want = _serve(cfg, params, toks, T, "cpu")
+    reset_launches()
+    got = _serve(cfg, params, toks, T, dev)
+    assert fa.flash_attention.variant_launches == {
+        "v1": flash_layers, "tensor_core": 0,
+        "decode": flash_layers * extra}
+    print(f"{arch} card-vs-cpu max abs gap "
+          f"{float((got - want).abs().max())}")
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
