@@ -33,7 +33,12 @@ internvl2-2b the same way at 1 x 1024 tokens and 8 steps, and, at full
 width with the depth cut to fit 80 GB, deepseek-v2-236b (multi-head
 latent attention and 160 experts, no flash kernel), arctic-480b (128
 experts beside a dense MLP) and nemotron-4-340b (head dim 192), each
-then a float32 1-layer copy's decode held to its forward; then trains the
+then a float32 1-layer copy's decode held to its forward, and at full
+width and full depth rwkv6-3b (RWKV6, no flash kernel), zamba2-1.2b
+(Mamba2 layers and a shared attention block over a 4096-token window)
+and seamless-m4t-large-v2 (the audio encoder-decoder: 256 frames, a
+16-token prompt replayed through decode), each then a float32
+full-depth copy's decode held to its forward; then trains the
 full qwen2.5-3b (phase ``lm_train``: ``make_train_step`` on 2 x 2048
 tokens at accum 1 and 2, the plain training attention, no port kernel,
 and a float32 2-layer twin's step held to the same step on the CPU) and
@@ -50,7 +55,8 @@ join-and-share runs' merge one launch a round that merges, late updates at
 s >= 1 among them, and 51 k-means launches a re-clustering; the scale
 runs' KD launches one a step of each wave's longest budget and their merges
 one a round that merges arrivals alone; every served model's flash
-launches, layers on ``tensor_core`` and layers x steps on ``decode``; no
+launches, attention layers on ``tensor_core`` and attention layers x
+steps on ``decode`` (RWKV none, zamba2 2 + 16, seamless 24 + 576); no
 flash or KD launch in a train step; one ``stream`` KD forward and backward
 a distill step with materialised logits, none when vocab-chunked, and the
 teacher's layers of ``tensor_core`` launches a teacher forward), holds
@@ -66,7 +72,8 @@ It imports nothing of JAX and nothing of the JAX package.
 
 profiles one steady round of the same main path on each engine, the
 clustering step, one steady FedAvg round on each engine, and one prefill
-and one decode step of the served model instead (host wall time, device
+and one decode step of the served model and of rwkv6-3b, zamba2-1.2b and
+seamless-m4t-large-v2 instead (host wall time, device
 busy time and idle share, launches, the kernels that take the device's
 time) and prints each as one JSON line; it checks nothing.
 """
@@ -135,18 +142,34 @@ LM_CONSISTENCY_TOL = 1e-3
 # top-2 beside a dense MLP and GQA groups of 7 (arctic-480b), and head_dim
 # 192 with GQA groups of 12 (nemotron-4-340b), whose bf16 weights do not
 # fit 80 GB, at the depth SERVE_DEPTH gives (by param_count: 6 of 60
-# layers, 49.8 GB; 2 of 35, 55.4 GB; 6 of 96, 60.3 GB); a shorter request
+# layers, 49.8 GB; 2 of 35, 55.4 GB; 6 of 96, 60.3 GB); then the
+# recurrent and encoder-decoder families at full width and full depth:
+# RWKV6 (rwkv6-3b, no attention), the Mamba2 hybrid with its shared
+# attention block (zamba2-1.2b, window 4096, applied twice) and the audio
+# encoder-decoder (seamless-m4t-large-v2, vocab 256206); a shorter request
 # than qwen2.5-3b's to stay inside the run's time
 SERVE_MORE = ("glm4-9b", "minitron-8b", "internvl2-2b", "deepseek-v2-236b",
-              "arctic-480b", "nemotron-4-340b")
+              "arctic-480b", "nemotron-4-340b", "rwkv6-3b", "zamba2-1.2b",
+              "seamless-m4t-large-v2")
 SERVE_DEPTH = {"deepseek-v2-236b": 6, "arctic-480b": 2, "nemotron-4-340b": 6}
 SERVE_B, SERVE_PROMPT, SERVE_DECODE = 1, 1024, 8
-# each depth-cut model's decode-vs-forward check: a float32 copy with one
-# layer at full width serves SERVE_CHECK_PROMPT tokens and SERVE_DECODE
-# steps, held to a full forward of the same tokens at LM_CONSISTENCY_TOL;
-# its MoE capacity factor is raised to E / k + 1, so that the forward, like
-# decode (capacity B), drops no token (the served runs keep 1.25)
+# seamless's request: SERVE_AUDIO audio positions as frame embeddings (the
+# stub frontend's output, standard normal from a seed), SERVE_AUDIO //
+# frame_ratio of them, as run_lm makes them, and a decoder prompt of
+# SERVE_AUDIO_PROMPT tokens; its prefill fills no self-attention cache (as
+# in JAX), so the prompt is replayed through decode before the greedy steps
+SERVE_AUDIO, SERVE_AUDIO_PROMPT = 1024, 16
+# the decode-vs-forward check of a depth-cut model and of the families
+# above: a float32 copy at full width (one layer for a depth-cut model,
+# full depth for CHECK_FULL_DEPTH) serves SERVE_CHECK_PROMPT tokens and
+# SERVE_DECODE steps, held to a full forward of the same tokens at
+# LM_CONSISTENCY_TOL; its MoE capacity factor is raised to E / k + 1, so
+# that the forward, like decode (capacity B), drops no token (the served
+# runs keep 1.25)
 SERVE_CHECK_PROMPT = 64
+CHECK_FULL_DEPTH = ("rwkv6-3b", "zamba2-1.2b", "seamless-m4t-large-v2")
+# ``--profile`` also takes a prefill and a decode step of these
+PROFILE_FAMILIES = CHECK_FULL_DEPTH
 # lm_train: full qwen2.5-3b, TRAIN_STEPS steps at accum 1 then at accum 2,
 # on B x T tokens (T >= 2 * attn_block: the blocked training attention);
 # the float32 2-layer twin's card step is held to its CPU step per leaf at
@@ -1515,9 +1538,13 @@ def phase_scale_path(ds, runtime_h):
 
 # ----------------------------------------------------------- phase 4c
 def _grow(cache, extra: int):
-    """The prefill's (L, B, T, KVH, hd) caches with ``extra`` empty slots
-    for the decode steps (the caller's job, as in the JAX tests)."""
+    """The prefill's (L, B, T, KVH, hd) caches (MLA's (L, B, T, r)) with
+    ``extra`` empty slots for the decode steps (the caller's job, as in the
+    JAX tests).  RWKV's carries and a hybrid's Mamba2 states and
+    window-sized attention buffers keep their size."""
     import torch
+    if "state" in cache or "mamba" in cache:
+        return cache
     return {k: torch.cat([c, torch.zeros_like(c[:, :, :extra])], dim=2)
             for k, c in cache.items()}
 
@@ -1551,6 +1578,47 @@ def _serve(cfg, params, prompt, n_decode: int, prefix=None):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return logits, torch.cat(toks, dim=1), t1 - t0, t2 - t1
+
+
+def _serve_audio(cfg, params, frames, prompt, n_decode: int):
+    """The encoder-decoder's serve through its entry points: the prefill
+    step encodes ``frames`` (B, F, d) and runs the decoder over ``prompt``
+    (B, P) (the last token's logits and the encoder memory; no
+    self-attention cache, as in JAX), the memory goes into a decode cache
+    of P + ``n_decode`` slots (``encdec.init_cache``), the prompt is
+    replayed through the decode step at positions 0..P-1, and
+    ``n_decode`` greedy steps follow.  Returns (the prefill's logits and
+    each greedy step's, the replay's logits, the generated tokens, the
+    prefill, replay and decode seconds)."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import encdec as ed
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    B, P = prompt.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, memory = prefill(params, {"frames": frames, "tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = ed.init_cache(cfg, B, P + n_decode, frames.shape[1],
+                          device=memory.device)
+    cache["memory"] = memory
+    replay = []
+    for t in range(P):
+        out, cache = decode(params, cache, prompt[:, t:t + 1], t)
+        replay.append(out)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    logits, toks = [last], []
+    for i in range(n_decode):
+        tok = logits[-1].argmax(dim=-1, keepdim=True)
+        toks.append(tok)
+        out, cache = decode(params, cache, tok, P + i)
+        logits.append(out)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return (logits, replay, torch.cat(toks, dim=1), t1 - t0, t2 - t1,
+            t3 - t2)
 
 
 def _count_requiring_grad(tree) -> int:
@@ -1662,16 +1730,77 @@ def phase_lm_serve(smi):
     return counts, variants, more
 
 
+def _init_serving(cfg):
+    """Random params of ``cfg`` on the card, seed LM_SEED (the
+    encoder-decoder's ``init_encdec``, every other family's ``init_lm``)."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tf
+    init = ed.init_encdec if cfg.arch_type == "audio" else tf.init_lm
+    return init(LM_SEED, cfg, device=DEV)
+
+
+def _audio_frames(cfg, r):
+    """seamless's request: SERVE_B x SERVE_AUDIO // frame_ratio frame
+    embeddings, standard normal from the numpy generator ``r``."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import DTYPES
+    return torch.from_numpy(r.standard_normal(
+        (SERVE_B, SERVE_AUDIO // cfg.frame_ratio, cfg.d_model),
+        np.float32)).to(DEV, DTYPES[cfg.dtype])
+
+
+def _expected_flash(cfg, steps: int) -> dict:
+    """The flash kernels a serve of ``cfg`` launches, by kernel: one
+    ``tensor_core`` per attention layer in the bf16 prefill, one ``decode``
+    per attention layer and decode step.  Attention layers: none for MLA
+    (plain torch) or RWKV, one a group for a hybrid (the shared block),
+    the decoder's for the encoder-decoder (its encoder and
+    cross-attention are plain torch), every layer otherwise."""
+    if cfg.use_mla or cfg.arch_type == "ssm":
+        layers = 0
+    elif cfg.arch_type == "hybrid":
+        layers = cfg.num_layers // cfg.attn_every
+    else:
+        layers = cfg.num_layers
+    return {"v1": 0, "tensor_core": layers, "decode": layers * steps}
+
+
+def _family(cfg) -> str:
+    """The served config's attention and mixer, for the emitted line."""
+    if cfg.use_mla:
+        return (f"MLA (kv_lora_rank {cfg.kv_lora_rank}, q_lora_rank "
+                f"{cfg.q_lora_rank}, qk {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, "
+                f"v {cfg.v_head_dim})")
+    if cfg.arch_type == "ssm":
+        return f"RWKV6 time mix, {cfg.num_heads} heads of {cfg.hd}"
+    if cfg.arch_type == "hybrid":
+        d_in = cfg.ssm_expand * cfg.d_model
+        heads = cfg.ssm_heads or max(1, d_in // 64)
+        return (f"Mamba2 (d_inner {d_in}, {heads} SSD heads of "
+                f"{d_in // heads}, state {cfg.ssm_state}), shared attention "
+                f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, "
+                f"window {cfg.sliding_window}, after every {cfg.attn_every} "
+                "layers")
+    if cfg.arch_type == "audio":
+        return (f"{cfg.num_encoder_layers} encoder + {cfg.num_layers} "
+                f"decoder layers, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+                f"of {cfg.hd}, frames {SERVE_AUDIO // cfg.frame_ratio}")
+    return (f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.hd}")
+
+
 def _serve_other(arch, smi):
     """One of the other served models at full width (random weights, seed
-    LM_SEED; a VLM's prefix standard normal from a seed), at full depth or
-    the depth SERVE_DEPTH gives: SERVE_B x SERVE_PROMPT tokens and
-    SERVE_DECODE greedy steps after a warm-up serve.  Raises unless the
-    flash kernels took exactly its GQA layers on ``tensor_core`` and those
-    layers x SERVE_DECODE on ``decode`` (none for an MLA model, whose
-    attention is plain torch), and the logits are finite; a depth-cut
-    model's decode is then held to a full forward (``_check_decode``).
-    Returns the launch counts and the expected flash launches."""
+    LM_SEED; a VLM's prefix and an audio model's frames standard normal
+    from a seed), at full depth or the depth SERVE_DEPTH gives:
+    SERVE_B x SERVE_PROMPT tokens and SERVE_DECODE greedy steps after a
+    warm-up serve (seamless: SERVE_AUDIO audio positions, a decoder prompt
+    of SERVE_AUDIO_PROMPT tokens replayed through decode, then the steps).
+    Raises unless the flash kernels took exactly ``_expected_flash``'s
+    launches and the logits are finite; a depth-cut model's decode, and a
+    CHECK_FULL_DEPTH model's, is then held to a full forward
+    (``_check_decode``).  Returns the launch counts and the expected flash
+    launches."""
     import dataclasses
 
     import numpy as np
@@ -1679,63 +1808,75 @@ def _serve_other(arch, smi):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.models import transformer as tf
     from repro_torch.models.layers import DTYPES
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=SERVE_DEPTH.get(
         arch, full.num_layers))
-    params = tf.init_lm(LM_SEED, cfg, device=DEV)
+    params = _init_serving(cfg)
     r = np.random.default_rng(LM_SEED + 2)
+    audio = cfg.arch_type == "audio"
+    P = SERVE_AUDIO_PROMPT if audio else SERVE_PROMPT
     prompt = torch.from_numpy(r.integers(0, cfg.vocab_size,
-                                         (SERVE_B, SERVE_PROMPT))).to(DEV)
-    prefix = None
+                                         (SERVE_B, P))).to(DEV)
+    prefix = frames = None
     if cfg.prefix_len:
         prefix = torch.from_numpy(r.standard_normal(
             (SERVE_B, cfg.prefix_len, cfg.d_model), np.float32)).to(
                 DEV, DTYPES[cfg.dtype])
-    _serve(cfg, params, prompt, 2, prefix)               # warm-up
+    if audio:
+        frames = _audio_frames(cfg, r)
+        _serve_audio(cfg, params, frames, prompt, 2)     # warm-up
+    else:
+        _serve(cfg, params, prompt, 2, prefix)           # warm-up
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     reset_launches()
-    logits, toks, pre_s, dec_s = _serve(cfg, params, prompt, SERVE_DECODE,
-                                        prefix)
+    replay_s = None
+    if audio:
+        logits, _, toks, pre_s, replay_s, dec_s = _serve_audio(
+            cfg, params, frames, prompt, SERVE_DECODE)
+    else:
+        logits, toks, pre_s, dec_s = _serve(cfg, params, prompt,
+                                            SERVE_DECODE, prefix)
     counts = launch_counts()
     variants = dict(fa.flash_attention.variant_launches)
     finite = bool(torch.isfinite(torch.stack(logits).float()).all())
-    gqa_layers = 0 if cfg.use_mla else cfg.num_layers
-    want = {"v1": 0, "tensor_core": gqa_layers,
-            "decode": gqa_layers * SERVE_DECODE}
+    want = _expected_flash(cfg, SERVE_DECODE + (P if audio else 0))
     depth = (f"{cfg.num_layers} layers" if cfg.num_layers == full.num_layers
              else f"depth cut to {cfg.num_layers} of {full.num_layers} "
              "layers to fit 80 GB")
-    attn = (f"MLA (kv_lora_rank {cfg.kv_lora_rank}, q_lora_rank "
-            f"{cfg.q_lora_rank}, qk {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, v "
-            f"{cfg.v_head_dim})" if cfg.use_mla else f"head_dim {cfg.hd}")
     moe = (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok}"
            f" (+{cfg.num_shared_experts} shared"
            + (", dense residual" if cfg.moe_dense_residual else "")
            + f"), capacity factor {cfg.capacity_factor}"
            if cfg.num_experts else "")
-    emit({"phase": "lm_serve", "card": smi,
-          "config": f"{arch} full width, {depth} (d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {attn}, d_ff "
-          f"{cfg.d_ff} {cfg.activation}{moe}, vocab {cfg.vocab_size}, prefix "
-          f"{cfg.prefix_len}), {cfg.dtype}, random weights seed {LM_SEED}",
-          "params": cfg.param_count(),
-          "params_full_depth": full.param_count(),
-          "layers": cfg.num_layers, "layers_full": full.num_layers,
-          "batch": SERVE_B,
-          "prompt": SERVE_PROMPT, "prefix": cfg.prefix_len,
-          "decode_steps": SERVE_DECODE, "prefill_ms": pre_s * 1e3,
-          "prefill_tokens_per_s": SERVE_B * (SERVE_PROMPT + cfg.prefix_len)
-          / pre_s,
-          "decode_ms_per_token": dec_s * 1e3 / SERVE_DECODE,
-          "decode_tokens_per_s": SERVE_B * SERVE_DECODE / dec_s,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "generated_tokens_row0": toks[0].tolist(),
-          "logits_finite": finite, "launches": counts,
-          "flash_attention_variants": variants,
-          "expected_flash_attention_variants": want})
+    positions = P + cfg.prefix_len
+    line = {"phase": "lm_serve", "card": smi,
+            "config": f"{arch} full width, {depth} (d_model {cfg.d_model}, "
+            f"{_family(cfg)}, d_ff {cfg.d_ff} {cfg.activation}{moe}, vocab "
+            f"{cfg.vocab_size}, prefix {cfg.prefix_len}), {cfg.dtype}, "
+            f"random weights seed {LM_SEED}",
+            "params": cfg.param_count(),
+            "params_full_depth": full.param_count(),
+            "layers": cfg.num_layers, "layers_full": full.num_layers,
+            "batch": SERVE_B, "prompt": P, "prefix": cfg.prefix_len,
+            "decode_steps": SERVE_DECODE, "prefill_ms": pre_s * 1e3,
+            "prefill_tokens_per_s": SERVE_B * positions / pre_s,
+            "decode_ms_per_token": dec_s * 1e3 / SERVE_DECODE,
+            "decode_tokens_per_s": SERVE_B * SERVE_DECODE / dec_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allocated_before_serve_gb": resident / 1e9,
+            "generated_tokens_row0": toks[0].tolist(),
+            "logits_finite": finite, "launches": counts,
+            "flash_attention_variants": variants,
+            "expected_flash_attention_variants": want}
+    if audio:
+        line.update({"audio_positions": SERVE_AUDIO,
+                     "frames": frames.shape[1],
+                     "replay_ms": replay_s * 1e3,
+                     "replay_ms_per_token": replay_s * 1e3 / P})
+    emit(line)
     if variants != want or counts["flash_attention"] != sum(want.values()):
         raise RuntimeError(f"{arch}: expected the flash_attention kernels "
                            f"{want}, counted {variants} "
@@ -1745,45 +1886,65 @@ def _serve_other(arch, smi):
                            "logits")
     del params, logits
     torch.cuda.empty_cache()
-    if cfg.num_layers != full.num_layers:
+    if cfg.num_layers != full.num_layers or arch in CHECK_FULL_DEPTH:
         _check_decode(arch, full, smi)
     return {"launches": counts, "expected_flash": sum(want.values())}
 
 
 def _check_decode(arch, full, smi):
-    """A float32 copy of ``full`` with one layer at full width serves
+    """A float32 copy of ``full`` at full width, with one layer (a
+    depth-cut model) or at full depth (CHECK_FULL_DEPTH), serves
     SERVE_CHECK_PROMPT tokens and SERVE_DECODE greedy steps; each step's
     logits are held to a full forward of the same tokens at
-    LM_CONSISTENCY_TOL.  Prefill drops tokens over capacity and decode
-    never does, so the MoE capacity factor is raised to E / k + 1, at which
-    the forward drops none either."""
+    LM_CONSISTENCY_TOL (the encoder-decoder's on the same frames, its
+    replayed prompt's logits too).  Prefill drops tokens over capacity and
+    decode never does, so the MoE capacity factor is raised to E / k + 1,
+    at which the forward drops none either."""
     import dataclasses
 
     import numpy as np
     import torch
+    from repro_torch.models import encdec as ed
     from repro_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(full, num_layers=1, dtype="float32")
+    layers = full.num_layers if arch in CHECK_FULL_DEPTH else 1
+    cfg = dataclasses.replace(full, num_layers=layers, dtype="float32")
     if cfg.num_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
                                   / cfg.num_experts_per_tok + 1)
-    params = tf.init_lm(LM_SEED, cfg, device=DEV)
-    prompt = torch.from_numpy(np.random.default_rng(LM_SEED + 3).integers(
+    params = _init_serving(cfg)
+    r = np.random.default_rng(LM_SEED + 3)
+    prompt = torch.from_numpy(r.integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_CHECK_PROMPT))).to(DEV)
-    torch.cuda.reset_peak_memory_stats()
-    logits, toks, _, _ = _serve(cfg, params, prompt, SERVE_DECODE)
-    full_logits, _ = tf.forward(params, cfg, {"tokens": torch.cat(
-        [prompt, toks], dim=1)})
     P = SERVE_CHECK_PROMPT
-    want = full_logits[:, P - 1:P + SERVE_DECODE].transpose(0, 1)
-    got = torch.stack(logits)
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.arch_type == "audio":
+        frames = _audio_frames(cfg, r)
+        logits, replay, toks, _, _, _ = _serve_audio(cfg, params, frames,
+                                                     prompt, SERVE_DECODE)
+        full_logits, _ = ed.forward(params, cfg, {
+            "frames": frames, "tokens": torch.cat([prompt, toks], dim=1)})
+        got = torch.stack(replay + logits)
+        want = torch.cat([full_logits[:, :P],
+                          full_logits[:, P - 1:P + SERVE_DECODE]],
+                         dim=1).transpose(0, 1)
+    else:
+        logits, toks, _, _ = _serve(cfg, params, prompt, SERVE_DECODE)
+        full_logits, _ = tf.forward(params, cfg, {"tokens": torch.cat(
+            [prompt, toks], dim=1)})
+        got = torch.stack(logits)
+        want = full_logits[:, P - 1:P + SERVE_DECODE].transpose(0, 1)
     gap = (got - want).abs()
     share = float((gap / (LM_CONSISTENCY_TOL
                           + LM_CONSISTENCY_TOL * want.abs())).max())
     ok = share <= 1.0
-    emit({"check": f"lm_serve {arch} float32 1 layer at full width: prefill "
+    depth = ("1 layer" if layers == 1 else f"full depth ({layers} layers)")
+    emit({"check": f"lm_serve {arch} float32 {depth} at full width: prefill "
           f"{P} + {SERVE_DECODE} decode steps vs a full forward of the same "
-          f"tokens (capacity factor {cfg.capacity_factor})",
+          "tokens" + (" (the prompt replayed through decode)"
+                      if cfg.arch_type == "audio" else "")
+          + (f" (capacity factor {cfg.capacity_factor})"
+             if cfg.num_experts else ""),
           "card": smi, "max_abs_err": float(gap.max()),
           "max_share_of_bound": share,
           "max_abs_logit": float(want.abs().max()),
@@ -2597,48 +2758,71 @@ def phase_profile(ds, smi):
 
 
 def phase_profile_lm(smi):
-    """Under ``torch.profiler``, after one untimed warm-up serve: one
-    prefill of the served model (LM_B x LM_PROMPT tokens) and one decode
-    step at position LM_PROMPT, each its own window."""
+    """Under ``torch.profiler``, after one untimed warm-up serve, one
+    prefill and one decode step of each profiled model, each its own
+    window: the served model (LM_B x LM_PROMPT tokens, the step at
+    position LM_PROMPT) and PROFILE_FAMILIES at ``lm_serve``'s traffic
+    (SERVE_B x SERVE_PROMPT, the step at position SERVE_PROMPT;
+    seamless's prefill of its frames and SERVE_AUDIO_PROMPT tokens, the
+    step at position SERVE_AUDIO_PROMPT over a cache holding the
+    memory)."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import transformer as tf
+    from repro_torch.models import encdec as ed
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    cfg = get_config(LM_ARCH)
-    params = tf.init_lm(LM_SEED, cfg, device=DEV)
-    prompt = _lm_prompt(cfg)
-    _serve(cfg, params, prompt, 2)
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    reset_launches()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        last, cache = prefill(params, {"tokens": prompt})
+
+    def window(name, fn):
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-    emit({"phase": "profile", "window": f"{LM_ARCH} prefill "
-          f"{LM_B} x {LM_PROMPT}", "card": smi, "port_launches":
-          launch_counts(), "flash_attention_variants":
-          dict(fa.flash_attention.variant_launches),
-          **_device_summary(prof, t1 - t0)})
-    cache = _grow(cache, LM_DECODE)
-    tok = last.argmax(dim=-1, keepdim=True)
-    torch.cuda.synchronize()
-    reset_launches()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        decode(params, cache, tok, LM_PROMPT)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-    emit({"phase": "profile", "window": f"{LM_ARCH} decode step at "
-          f"position {LM_PROMPT}", "card": smi,
-          "port_launches": launch_counts(), "flash_attention_variants":
-          dict(fa.flash_attention.variant_launches),
-          **_device_summary(prof, t1 - t0)})
+        reset_launches()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        emit({"phase": "profile", "window": name, "card": smi,
+              "port_launches": launch_counts(), "flash_attention_variants":
+              dict(fa.flash_attention.variant_launches),
+              **_device_summary(prof, t1 - t0)})
+        return out
+
+    for arch in (LM_ARCH, *PROFILE_FAMILIES):
+        cfg = get_config(arch)
+        params = _init_serving(cfg)
+        prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+        audio = cfg.arch_type == "audio"
+        if arch == LM_ARCH:
+            prompt = _lm_prompt(cfg)
+        else:
+            r = np.random.default_rng(LM_SEED + 2)
+            prompt = torch.from_numpy(r.integers(0, cfg.vocab_size, (
+                SERVE_B, SERVE_AUDIO_PROMPT if audio else SERVE_PROMPT))).to(
+                    DEV)
+        B, T = prompt.shape
+        batch = {"tokens": prompt}
+        if audio:
+            batch["frames"] = _audio_frames(cfg, r)
+            _serve_audio(cfg, params, batch["frames"], prompt, 2)
+        else:
+            _serve(cfg, params, prompt, 2)
+        last, cache = window(f"{arch} prefill {B} x {T}",
+                             lambda: prefill(params, batch))
+        if audio:
+            memory = cache
+            cache = ed.init_cache(cfg, B, T + 1, memory.shape[1], device=DEV)
+            cache["memory"] = memory
+        else:
+            cache = _grow(cache, 1)
+        tok = last.argmax(dim=-1, keepdim=True)
+        window(f"{arch} decode step at position {T}",
+               lambda: decode(params, cache, tok, T))
+        del params, cache, last
+        torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -3,13 +3,14 @@
 
 ``ModelConfig`` keeps every field, ``hd``, ``as_student`` and
 ``param_count`` of the JAX package's, so a configuration means the same in
-both.  Only the architectures that the port runs are registered: the dense
-decoders and the VLM-prefix one (``qwen2.5-3b``, ``glm4-9b``,
-``minitron-8b``, ``internvl2-2b``, ``nemotron-4-340b``) and the
-mixture-of-experts ones (``deepseek-v2-236b`` with multi-head latent
-attention, ``arctic-480b``), each with its full-size and reduced ``smoke``
-variant; ``get_config`` on any other architecture (rwkv, ssm, hybrid,
-encdec) raises ``NotImplementedError`` naming ROADMAP Queue 1 item 10.4.
+both.  Every architecture of ``ARCH_IDS`` is registered, each with its
+full-size and reduced ``smoke`` variant: the dense decoders and the
+VLM-prefix one (``qwen2.5-3b``, ``glm4-9b``, ``minitron-8b``,
+``internvl2-2b``, ``nemotron-4-340b``), the mixture-of-experts ones
+(``deepseek-v2-236b`` with multi-head latent attention, ``arctic-480b``),
+RWKV6 (``rwkv6-3b``), the Mamba2 hybrid (``zamba2-1.2b``) and the audio
+encoder-decoder (``seamless-m4t-large-v2``).  ``get_config`` on an unknown
+id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -166,10 +167,12 @@ class ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: dict[str, Callable[[], ModelConfig]] = {}
 
-# the architectures whose models the port runs (dense GQA decoders, the
-# VLM with a stub prefix, and the MoE decoders, one of them with MLA)
+# the architectures whose models the port runs: every one of ARCH_IDS
+# (dense GQA decoders, the VLM with a stub prefix, the MoE decoders, one of
+# them with MLA, RWKV6, the Mamba2 hybrid and the audio encoder-decoder)
 PORTED = ("qwen2.5-3b", "glm4-9b", "minitron-8b", "internvl2-2b",
-          "nemotron-4-340b", "deepseek-v2-236b", "arctic-480b")
+          "nemotron-4-340b", "deepseek-v2-236b", "arctic-480b", "rwkv6-3b",
+          "zamba2-1.2b", "seamless-m4t-large-v2")
 
 
 def register(arch_id: str, full: Callable[[], ModelConfig],
@@ -181,11 +184,6 @@ def register(arch_id: str, full: Callable[[], ModelConfig],
 def _ensure_loaded(arch_id: str) -> None:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r} (known: {ARCH_IDS})")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port runs "
-            f"{list(PORTED)}; the other families (rwkv, ssm, hybrid, "
-            "encdec) are ROADMAP Queue 1 item 10.4")
     if arch_id not in _REGISTRY:
         mod = arch_id.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,4 +1,4 @@
-"""Step builders for the decoder-only models: the port of
+"""Step builders for the language models: the port of
 ``repro.launch.steps``.
 
 - ``make_optimizer`` / ``make_train_step``: next-token training with AdamW
@@ -16,10 +16,13 @@ opt_state)`` in place (``Optimizer.update_``), the port's form of the
 JAX steps' ``donate_argnums = (0, 1)``; the teacher is only read.  The
 optimizers take flat dicts, so the steps flatten the nested LM params
 with dotted keys (``tree.flatten``) at their boundary.  Every step serves
-or trains the dense, VLM-prefix and MoE decoders (GQA or MLA attention;
-a MoE model's loss carries its load-balance aux); the audio
-encoder-decoder's steps raise (ROADMAP Queue 1 item 10.4), and the model
-raises for the other unported families.
+or trains every family: the decoders of ``models/transformer.py`` (dense,
+VLM-prefix, MoE with GQA or MLA attention, whose loss carries its
+load-balance aux; RWKV6; the Mamba2 hybrid) and the audio
+encoder-decoder of ``models/encdec.py`` (``_loss_mod``, as in JAX), whose
+batches carry their ``frames``.  The distillation step's vocab-chunked
+path needs final hidden states, which the encoder-decoder's forward does
+not return (in JAX it fails there too), so it refuses that combination.
 """
 from __future__ import annotations
 
@@ -32,17 +35,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamState, adamw
 from repro_torch.rng import fold_seed
 from repro_torch.tree import flatten, unflatten
 
 
-def _check_decoder(cfg: ModelConfig) -> None:
-    if cfg.arch_type == "audio":
-        raise NotImplementedError(
-            "the audio encoder-decoder's steps are not ported yet (ROADMAP "
-            "Queue 1 item 10.4)")
+def _loss_mod(cfg: ModelConfig):
+    return ed if cfg.arch_type == "audio" else tf
 
 
 def make_optimizer(cfg: ModelConfig, *, lr: float = 1e-4):
@@ -68,13 +69,13 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, accum: int = 1):
     batch is cut into ``accum`` micro-batches along its first axis, their
     gradients summed in float32, divided by ``accum`` and cast to bfloat16
     when ``cfg.dtype`` is, and the loss is the mean of the micro losses."""
-    _check_decoder(cfg)
     opt = make_optimizer(cfg, lr=lr)
+    mod = _loss_mod(cfg)
     grad_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
     def loss_and_grads(flat_p, batch):
         alias = _grad_aliases(flat_p)
-        loss, _ = tf.lm_loss(unflatten(alias), cfg, batch)
+        loss, _ = mod.lm_loss(unflatten(alias), cfg, batch)
         grads = torch.autograd.grad(loss, list(alias.values()))
         return loss.detach(), dict(zip(alias, grads))
 
@@ -110,8 +111,19 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, accum: int = 1):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, batch) -> (last-token logits (B, V), cache)``."""
-    _check_decoder(cfg)
+    """``prefill_step(params, batch) -> (last-token logits (B, V), cache)``;
+    for the audio encoder-decoder ``(last-token logits, encoder memory (B,
+    F, d))``: its prefill fills no self-attention cache, as in JAX, and a
+    caller decodes from ``encdec.init_cache`` holding that memory.  The
+    encoder runs once (JAX's step runs it twice, for the memory and inside
+    ``forward``: the same values)."""
+    if cfg.arch_type == "audio":
+        def prefill_step(params, batch):
+            memory = ed.encode(params, cfg, batch["frames"])
+            logits = ed._decode_tokens(params, cfg, memory, batch["tokens"],
+                                       False)
+            return logits[:, -1, :].contiguous(), memory
+        return prefill_step
 
     def prefill_step(params, batch):
         return tf.prefill(params, cfg, batch)
@@ -122,10 +134,10 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, cache, tokens (B, 1), pos) -> (logits (B, V),
     cache)``; the cache is updated in place."""
-    _check_decoder(cfg)
+    mod = _loss_mod(cfg)
 
     def decode_step(params, cache, tokens, pos):
-        logits, cache = tf.decode_step(params, cfg, cache, tokens, pos)
+        logits, cache = mod.decode_step(params, cfg, cache, tokens, pos)
         return logits[:, -1, :], cache
 
     return decode_step
@@ -254,9 +266,18 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
       student's checkpointed closure, so the backward recomputes the
       teacher; the loss as in the default;
     - ``vocab_chunk > 0``: the teacher's final hidden states once, and
-      each replica's loss by ``chunked_kd_loss``, no KD kernel.
+      each replica's loss by ``chunked_kd_loss``, no KD kernel; not for
+      the audio encoder-decoder, whose forward returns no hidden states
+      (``ValueError``; JAX's step fails on it with a ``TypeError``).
     """
-    _check_decoder(cfg)
+    if vocab_chunk and cfg.arch_type == "audio":
+        raise ValueError(
+            "vocab_chunk needs the final hidden states, which the audio "
+            "encoder-decoder's forward does not return (encdec.forward has "
+            "no return_hidden, in the JAX package too); use the default or "
+            "the teacher_in_grad loss path")
+    mod = _loss_mod(cfg)
+    init = ed.init_encdec if cfg.arch_type == "audio" else tf.init_lm
     s_cfg = cfg.as_student()
     base = make_optimizer(s_cfg, lr=lr)
     A_intra, A_global = (a.numpy() for a in averaging_matrices(cluster_of))
@@ -285,12 +306,12 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
         return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
     def _student_logits(student, b):
-        s_logits, _ = tf.forward(student, s_cfg, b, train=True)
+        s_logits, _ = mod.forward(student, s_cfg, b, train=True)
         return _drop_prefix(s_logits)
 
     def _naive(student, teacher, b):
         with torch.no_grad():
-            t_logits, _ = tf.forward(teacher, cfg, b)
+            t_logits, _ = mod.forward(teacher, cfg, b)
         return _student_logits(student, b), _drop_prefix(t_logits)
 
     def _lanes_loss(s_logits, t_logits, labels):
@@ -325,7 +346,7 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
                     chunk=vocab_chunk))
             return torch.stack(out)
         with torch.no_grad():
-            t_logits, _ = tf.forward(teacher, cfg, _merged(batch))
+            t_logits, _ = mod.forward(teacher, cfg, _merged(batch))
             t_logits = _drop_prefix(t_logits)
         s_logits = torch.stack([_student_logits(reps[d], _replica(batch, d))
                                 for d in range(D)])
@@ -364,11 +385,10 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
 
     def init_students(seed: int, *, device="cuda"):
         """D student replicas stacked on a leading axis, replica d from
-        ``init_lm(fold_seed(seed, d), s_cfg)``."""
+        ``init_lm`` (``init_encdec`` for audio) at ``fold_seed(seed, d)``."""
         flat = None
         for d in range(D):
-            one = flatten(tf.init_lm(fold_seed(seed, d), s_cfg,
-                                     device=device))
+            one = flatten(init(fold_seed(seed, d), s_cfg, device=device))
             if flat is None:
                 flat = {k: torch.empty((D, *v.shape), dtype=v.dtype,
                                        device=v.device)

@@ -30,6 +30,7 @@ from repro_torch.data.synthetic import load_dataset
 from repro_torch.fed.fedstate import json_safe
 from repro_torch.fed.rounds import FedConfig, resolve_device, run_federated
 from repro_torch.launch import steps as st
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import DTYPES
 
@@ -90,7 +91,8 @@ def run_lm(args):
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     step, opt = st.make_train_step(cfg, lr=args.lr)
-    params = tf.init_lm(args.seed, cfg, device=device)
+    init = ed.init_encdec if cfg.arch_type == "audio" else tf.init_lm
+    params = init(args.seed, cfg, device=device)
     opt_state = opt.init(params)
     start = 0
     ck = Path(args.ckpt) / "lm.npz" if args.ckpt else None
@@ -105,6 +107,10 @@ def run_lm(args):
                                        seed=args.seed + start,
                                        num_batches=args.steps)):
         batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        if cfg.arch_type == "audio":
+            batch["frames"] = torch.zeros(
+                (args.batch, max(args.seq // 4, 4), cfg.d_model), dtype=dt,
+                device=device)
         if cfg.prefix_len:
             batch["prefix"] = torch.zeros(
                 (args.batch, cfg.prefix_len, cfg.d_model), dtype=dt,

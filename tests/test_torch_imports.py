@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, jaxlib or the JAX package (``repro``), and
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the port's example (``examples/serve_torch.py``)
+imports JAX, jaxlib or the JAX package (``repro``), and
 ``triton`` is never imported at module level (the CPU test machines have
 none, and the tests import every module)."""
 import ast
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -40,7 +41,11 @@ def test_the_walk_sees_the_whole_port():
     assert "src/repro_torch/kernels/ops.py" in names
     for module in ("configs/base.py", "configs/qwen2_5_3b.py",
                    "configs/glm4_9b.py", "configs/minitron_8b.py",
+                   "configs/rwkv6_3b.py", "configs/zamba2_1_2b.py",
+                   "configs/seamless_m4t_large_v2.py",
                    "models/layers.py", "models/transformer.py",
+                   "models/chunked_scan.py", "models/ssm.py",
+                   "models/rwkv.py", "models/encdec.py",
                    "launch/steps.py", "kernels/flash_attention.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(names) >= 36

@@ -28,7 +28,7 @@ from repro.configs import get_config as jax_config
 from repro.launch import steps as jst
 from repro.models import layers as jly
 from repro.models import transformer as jtf
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, PORTED, get_config
 from repro_torch.convert import lm_params_from_jax, lm_params_to_jax
 from repro_torch.launch import steps as st
 from repro_torch.models import layers as ly
@@ -88,17 +88,17 @@ def test_configs_are_the_jax_configs(arch, smoke):
         jc.as_student())
 
 
-def test_unported_families_raise():
-    """The families still to port (rwkv, ssm, hybrid, audio) raise naming
-    their ROADMAP item; MoE and MLA run (``tests/test_torch_moe_mla.py``)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_config("rwkv6-3b")
-    _, cfg = _cfgs("qwen2.5-3b")
-    for over in ({"arch_type": "ssm"}, {"arch_type": "hybrid"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            tf.init_lm(0, dataclasses.replace(cfg, **over), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        st.make_prefill_step(dataclasses.replace(cfg, arch_type="audio"))
+def test_every_arch_id_resolves():
+    """Every architecture of ``ARCH_IDS`` is registered (``PORTED``), each
+    config equal to the JAX package's; an unknown id raises ``KeyError``
+    naming the known ones."""
+    assert sorted(PORTED) == sorted(ARCH_IDS)
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+                dataclasses.asdict(jax_config(arch, smoke=smoke))
+    with pytest.raises(KeyError, match="unknown architecture 'gpt-5'"):
+        get_config("gpt-5")
 
 
 @pytest.mark.parametrize("arch", DENSE)

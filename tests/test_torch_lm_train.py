@@ -32,6 +32,7 @@ import torch
 
 from repro.configs import get_config as jax_config
 from repro.launch import steps as jst
+from repro.models import encdec as jed
 from repro.models import transformer as jtf
 from repro.optim import adamw as jax_adamw
 from repro.optim import apply_updates as jax_apply_updates
@@ -57,19 +58,22 @@ def _cfgs(arch, **over):
 
 
 def jax_init(key, cfg):
-    """``init_lm`` jitted: the same params, compiled once for each model
-    shape (the width, depth and dtype fields; eager it takes seconds a
-    call)."""
+    """``init_lm`` (``init_encdec`` for audio) jitted: the same params,
+    compiled once for each model shape (the width, depth and dtype fields;
+    eager it takes seconds a call)."""
     shape = dataclasses.replace(cfg, remat=False, attn_block=1024)
+    if cfg.arch_type == "audio":
+        return _jit_init_encdec(key, shape)
     return _jit_init(key, shape)
 
 
 _jit_init = jax.jit(jtf.init_lm, static_argnums=1)
+_jit_init_encdec = jax.jit(jed.init_encdec, static_argnums=1)
 
 
 def _batch(cfg, B, T, seed):
-    """Tokens, next-token labels with two ignored (-1), and a VLM's
-    prefix, as numpy."""
+    """Tokens, next-token labels with two ignored (-1), a VLM's prefix and
+    an audio model's frames (B, max(T // 4, 4), d), as numpy."""
     r = np.random.default_rng(seed)
     toks = r.integers(0, cfg.vocab_size, (B, T + 1), dtype=np.int32)
     b = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
@@ -77,6 +81,9 @@ def _batch(cfg, B, T, seed):
     b["labels"][-1, -1] = -1
     if cfg.prefix_len:
         b["prefix"] = r.standard_normal((B, cfg.prefix_len, cfg.d_model),
+                                        np.float32)
+    if cfg.arch_type == "audio":
+        b["frames"] = r.standard_normal((B, max(T // 4, 4), cfg.d_model),
                                         np.float32)
     return b
 
@@ -114,16 +121,21 @@ def _close(got, want, tol=TOL):
 @pytest.mark.parametrize("arch", PORTED)
 def test_lm_loss_matches_jax(arch):
     """The loss, its ce and its aux: the MoE models' load-balance losses
-    summed over the layers, exactly 0.0 for the models without experts."""
+    summed over the layers, exactly 0.0 for the other decoders; the audio
+    encoder-decoder's loss (``encdec.lm_loss``, picked as JAX's steps pick
+    it) has its ce alone."""
     jc, tc = _cfgs(arch)
     jp = jax_init(KEY, jc)
     b = _batch(jc, 2, 16, seed=1)
-    want, jaux = jax.jit(lambda p, x: jtf.lm_loss(p, jc, x))(jp, _jax(b))
-    got, aux = tf.lm_loss(lm_params_from_jax(jp), tc, _torch(b))
+    jmod, mod = jst._loss_mod(jc), st._loss_mod(tc)
+    want, jaux = jax.jit(lambda p, x: jmod.lm_loss(p, jc, x))(jp, _jax(b))
+    got, aux = mod.lm_loss(lm_params_from_jax(jp), tc, _torch(b))
+    assert aux.keys() == jaux.keys()
     _close(got, want)
     _close(aux["ce"], jaux["ce"])
-    _close(aux["aux"], jaux["aux"])
-    if not tc.num_experts:
+    if tc.arch_type != "audio":
+        _close(aux["aux"], jaux["aux"])
+    if not tc.num_experts and tc.arch_type != "audio":
         assert float(aux["aux"]) == float(jaux["aux"]) == 0.0
 
 
@@ -194,15 +206,27 @@ def test_accum_loss_is_the_mean_of_micro_losses():
     assert losses[1] == pytest.approx(losses[0], rel=1e-6)
 
 
-def test_audio_steps_raise():
-    _, tc = _cfgs("qwen2.5-3b")
-    audio = dataclasses.replace(tc, arch_type="audio")
-    for make in (st.make_train_step, st.make_prefill_step,
-                 st.make_decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10.4"):
-            make(audio)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10.4"):
-        st.make_fedsikd_distill_step(audio, [0, 0])
+def test_audio_chunked_distill_is_refused():
+    """The distillation step's vocab-chunked path needs final hidden
+    states, which the audio encoder-decoder's forward does not return: the
+    port refuses the combination when the step is built; JAX builds the
+    step and fails when it runs (``encdec.forward`` takes no
+    ``return_hidden``).  The other audio paths build."""
+    jc, tc = _cfgs("seamless-m4t-large-v2")
+    with pytest.raises(ValueError, match="vocab_chunk needs the final "
+                                         "hidden states"):
+        st.make_fedsikd_distill_step(tc, [0, 0], vocab_chunk=128)
+    jstep, _, jinit, jopt, _ = jst.make_fedsikd_distill_step(
+        jc, np.array([0, 0]), vocab_chunk=128)
+    students = jax.eval_shape(lambda: jinit(KEY))
+    batch = {k: jax.ShapeDtypeStruct((2, *v.shape), v.dtype)
+             for k, v in _batch(jc, 1, 8, seed=0).items()}
+    with pytest.raises(TypeError, match="return_hidden"):
+        jax.eval_shape(jstep, students, jax.eval_shape(
+            jax.vmap(jopt.init), students),
+            jax.eval_shape(lambda: jax_init(KEY, jc)), batch)
+    for kw in ({}, {"teacher_in_grad": True}):
+        st.make_fedsikd_distill_step(tc, [0, 0], **kw)
 
 
 # ------------------------------------------------------------ optimizer
