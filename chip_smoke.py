@@ -6,7 +6,8 @@ GPU.  Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the KD
-kernels in each of their two regimes, rows and stream, at ``KD_CASES``),
+kernels in each of their two regimes, rows and stream, at ``KD_CASES``,
+and in bf16 at the distill steps' vocabularies, ``KD_BF16_CASES``),
 drives the fused distill step and the FedSiKD main path (``run_federated``
 on the full MNIST twin, 40 clients, 3 rounds) on the card on both engines
 (the loop engine, then the packed engine with all 40 clients as lanes of
@@ -42,11 +43,17 @@ full-depth copy's decode held to its forward; then trains the
 full qwen2.5-3b (phase ``lm_train``: ``make_train_step`` on 2 x 2048
 tokens at accum 1 and 2, the plain training attention, no port kernel,
 and a float32 2-layer twin's step held to the same step on the CPU) and
-runs the paper's FedSiKD step at LLM scale (phase ``lm_distill``:
-``make_fedsikd_distill_step`` with the full qwen2.5-3b as teacher and 2
-students of 18 layers, on each loss path: the teacher's forward on the
-flash kernel, the students' loss in one call of the KD kernels, or none
-when vocab-chunked). It checks that each path went through
+then rwkv6-3b, zamba2-1.2b, seamless-m4t-large-v2, deepseek-v2-236b and
+arctic-480b at full width (the MoE models with their layers and experts
+cut to fit 80 GB, ``TRAIN_MORE``), each with its float32 twin held to its
+CPU step, and runs the paper's FedSiKD step at LLM scale (phase
+``lm_distill``: ``make_fedsikd_distill_step`` with the full qwen2.5-3b as
+teacher and 2 students of 18 layers, on each loss path: the teacher's
+forward on the flash kernel, the students' loss in one call of the KD
+kernels, or none when vocab-chunked; then each of the five other families
+as teacher, ``DISTILL_MORE``), then runs ``examples/quickstart_torch.py``
+and ``examples/llm_distill_torch.py`` on the card as a user runs them
+(phase ``examples``). It checks that each path went through
 its kernels (the loop engine's merge one multi-leaf launch a round, the
 clustering step's 255 k-means calls on the split kernel, every KD launch of
 the fused distill step and the packed engine on the rows kernels, FedAvg's
@@ -59,7 +66,8 @@ launches, attention layers on ``tensor_core`` and attention layers x
 steps on ``decode`` (RWKV none, zamba2 2 + 16, seamless 24 + 576); no
 flash or KD launch in a train step; one ``stream`` KD forward and backward
 a distill step with materialised logits, none when vocab-chunked, and the
-teacher's layers of ``tensor_core`` launches a teacher forward), holds
+teacher's attention layers of ``tensor_core`` launches a teacher forward,
+once a replica for a MoE teacher), holds
 each packed engine's per-round accuracy and eval loss to its loop engine's
 and a float32 2-layer serve's decode logits to a full forward of the same
 tokens, times every kernel beside its bound, and prints one JSON object per
@@ -79,6 +87,7 @@ time) and prints each as one JSON line; it checks nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -116,6 +125,14 @@ LOSS_RTOL_TO_LOOP = 1e-2
 # vocabulary; each in float32 and bf16
 KD_CASES = [(64, 10), (PATH_ROWS, 10), (2048, 32000), (300, 32003),
             (16, 151936), (5, 50257), (2048, 151936)]
+# bf16 only, at the 2 x 1024 rows of the distill step: the vocabularies the
+# other families give the KD kernels there (rwkv6-3b's 65,536,
+# deepseek-v2-236b's 102,400 and seamless-m4t-large-v2's 256,206, which is
+# 6 mod 8, so consecutive rows start at other 16-byte alignments and every
+# row takes the head and tail path; arctic's and zamba2's 32,000 is in
+# KD_CASES), drawn on the card (``_kd_inputs_on_card``: the host draws about
+# 3e7 normals a second)
+KD_BF16_CASES = [(2048, 65536), (2048, 102400), (2048, 256206)]
 # (loss and stats rtol, ds rtol and atol) of the KD kernels against their
 # plain versions; the loss and stats take an atol of 10 x their rtol
 KD_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}
@@ -192,6 +209,40 @@ DISTILL_T = 1024
 DISTILL_ROWS = len(DISTILL_CLUSTERS) * DISTILL_T
 DISTILL_CHUNK = 8192
 DISTILL_LR = 1e-4
+# lm_train and lm_distill then take every other family, each after qwen2.5-3b's
+# runs, at full width with random weights (seed LM_SEED): at full depth, or for
+# the MoE models with num_layers and num_experts cut to fit 80 GB at 12 B a
+# trained parameter (bf16 weights and grads, float32 Adam moments: each cut
+# config stays under make_optimizer's 8e9 switch) and 2 B a teacher parameter;
+# d_model, heads, d_ff, top-k, shared experts and MLA stay the full config's.
+# Train (by param_count): rwkv6-3b 3.06 B, zamba2-1.2b 1.17,
+# seamless-m4t-large-v2 1.53, deepseek-v2-236b 1 of 60 layers with all 160
+# experts 5.02 (60.3 GB), arctic-480b 2 of 35 layers with 8 of 128 experts
+# 2.58.  Distill: the teacher so cut and its as_student() (half the layers):
+# deepseek 2 layers with 32 experts (2.95 B) and students of 1 layer (2.00 B
+# each), arctic 2 layers with 8 experts (2.58 B) and students of 1 (1.52 B)
+TRAIN_MORE = {"rwkv6-3b": {}, "zamba2-1.2b": {}, "seamless-m4t-large-v2": {},
+              "deepseek-v2-236b": {"num_layers": 1},
+              "arctic-480b": {"num_layers": 2, "num_experts": 8}}
+DISTILL_MORE = {"rwkv6-3b": {}, "zamba2-1.2b": {},
+                "seamless-m4t-large-v2": {},
+                "deepseek-v2-236b": {"num_layers": 2, "num_experts": 32},
+                "arctic-480b": {"num_layers": 2, "num_experts": 8}}
+# the MoE models train on MOE_TRAIN_BT = (B, T): 1,024 tokens, B even so that
+# accum 2 splits it; the others on TRAIN_B x TRAIN_T (the encoder-decoder with
+# T // frame_ratio frames a sequence)
+MOE_TRAIN_BT = (2, 512)
+# deepseek-v2-236b's train run takes no accum-2 step: its float32 gradient
+# sums (4 B a parameter, 20.1 GB) do not fit beside the 60.3 GB of one
+# layer with all 160 experts and its activations (the step ran out of
+# memory at 73.9 GiB allocated, asking 4.7 GiB more); arctic-480b's run
+# takes the MoE through accum 2
+NO_ACCUM2 = ("deepseek-v2-236b",)
+# each one's float32 twin: 2 layers at full width (the MoE's with TWIN_EXPERTS
+# experts, the hybrid's as one group, attn_every 2, the encoder-decoder's 2 +
+# 2), one step at B 1 x TWIN_T on the card and the same step on the CPU, held
+# per leaf at TRAIN_PARAM_RTOL as qwen2.5-3b's twin is
+TWIN_EXPERTS, TWIN_T = 8, 256
 # head dims 96 and 192 (ROADMAP Queue 2 item 5): shapes of the checks, and
 # the timed shapes of phase 5: nemotron-4-340b's prefill and last decode
 # step (96 query heads, 8 kv heads, hd 192) and the same at hd 96
@@ -388,6 +439,19 @@ def _kd_inputs(T, V, dtype, seed):
     return (s.to(DEV, dtype), t.to(DEV, dtype), torch.from_numpy(y).to(DEV))
 
 
+def _kd_inputs_on_card(T, V, dtype, seed):
+    """``_kd_inputs``' distributions drawn by the card's generator: logits
+    3 x standard normal, labels uniform with about a tenth of them -1."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    s = (torch.randn((T, V), generator=g, device=DEV) * 3).to(dtype)
+    t = (torch.randn((T, V), generator=g, device=DEV) * 3).to(dtype)
+    y = torch.randint(0, V, (T,), generator=g, device=DEV,
+                      dtype=torch.int32)
+    y[torch.rand((T,), generator=g, device=DEV) < 0.1] = -1
+    return s, t, y
+
+
 def _lane_grads(y, seed):
     """Per-row upstream gradients of the packed path's form: rows in lanes
     of ``BATCH``, each row ``w[lane] / valid_rows[lane]`` with a random
@@ -476,16 +540,16 @@ def _fa_inputs(shape, dtype, seed, device=None):
     return q, normal(B, S_buf, KVH, hd)[:, :S], normal(B, S_buf, KVH, hd)[:, :S]
 
 
-def _kd_check(T, V, dtype, seed, sms):
+def _kd_check(T, V, dtype, seed, sms, draw=_kd_inputs):
     """One KD forward and backward call against the plain versions at the
-    KD_TOL of ``dtype``, per-lane g; raises unless each call was one launch
-    of the regime ``plan`` gives.  Returns the forward's and backward's
-    largest errors."""
+    KD_TOL of ``dtype``, per-lane g, on inputs from ``draw``; raises unless
+    each call was one launch of the regime ``plan`` gives.  Returns the
+    forward's and backward's largest errors."""
     import torch
     from repro_torch.kernels import kd_softmax_kl as kd
     name = str(dtype)[6:]
     tol, btol = KD_TOL[name]
-    s, t, y = _kd_inputs(T, V, dtype, seed)
+    s, t, y = draw(T, V, dtype, seed)
     regime = kd.plan(T, V, sms)["regime"]
     tag = f"T={T} V={V} {name} [{regime}]"
     before = (dict(kd.kd_loss_fwd.variant_launches),
@@ -516,10 +580,10 @@ def _kd_check(T, V, dtype, seed, sms):
 
 
 def phase_kernel_checks():
-    """Every kernel against its plain version on the card, the KD kernels
-    at KD_CASES in every regime.  The KD rows of the kernels line carry the
-    error at the packed path's shape: (2560, 10) rows and the per-lane
-    wrapper ``ops.kd_distillation_loss_lanes`` on
+    """Every kernel against its plain version on the card, the KD kernels at
+    KD_CASES in every regime and at KD_BF16_CASES.  The KD rows of the
+    kernels line carry the error at the packed path's shape: (2560, 10)
+    rows and the per-lane wrapper ``ops.kd_distillation_loss_lanes`` on
     (40, 64, 10), held against the plain per-lane loss and its gradient;
     the flash-attention row the largest error at the served model's prefill
     and decode shapes, in float32 and bf16."""
@@ -541,6 +605,9 @@ def phase_kernel_checks():
             if (T, V, dtype) == (PATH_ROWS, 10, torch.float32):
                 errs["kd_softmax_kl_fwd"] = e_fwd
                 errs["kd_softmax_kl_bwd"] = e_bwd
+    for i, (T, V) in enumerate(KD_BF16_CASES):
+        _kd_check(T, V, torch.bfloat16, 100 + i, sms, draw=_kd_inputs_on_card)
+        torch.cuda.empty_cache()
     s, t, y = _kd_inputs(PATH_ROWS, 10, torch.float32, 26)
     shape = (PACKED_LANES, BATCH, 10)
     s, t, y = s.reshape(shape), t.reshape(shape), y.reshape(shape[:2])
@@ -1654,6 +1721,7 @@ def phase_lm_serve(smi):
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import transformer as tf
 
+    allocated_before = torch.cuda.memory_allocated() / 1e9
     cfg = get_config(LM_ARCH)
     params = tf.init_lm(LM_SEED, cfg, device=DEV)
     # the flash kernels refuse inputs that need a gradient: serving's
@@ -1686,6 +1754,7 @@ def phase_lm_serve(smi):
           "decode_ms_per_token": dec_s * 1e3 / LM_DECODE,
           "decode_tokens_per_s": LM_B * LM_DECODE / dec_s,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "allocated_before_gb": allocated_before,
           "generated_tokens_row0": toks[0].tolist(),
           "logits_finite": finite, "launches": counts,
           "expected_flash_attention_launches": want_fa,
@@ -1724,7 +1793,8 @@ def phase_lm_serve(smi):
     if not ok:
         raise RuntimeError(f"decode logits differ from the full forward by "
                            f"{float(gap.max())} (limit {LM_CONSISTENCY_TOL})")
-    del params, logits, full
+    # want is a view of full's 2 x 4128 x 151936 float32 logits (5.0 GB)
+    del params, logits, full, want, got, gap
     torch.cuda.empty_cache()
     more = {arch: _serve_other(arch, smi) for arch in SERVE_MORE}
     return counts, variants, more
@@ -1959,16 +2029,24 @@ def _check_decode(arch, full, smi):
 
 
 # ----------------------------------------------------------- phase 4d
-def _lm_batch(cfg, shape, seed):
-    """Tokens (shape) and their next-token labels, on the card, from a
-    numpy seed (the labels are the tokens shifted by one: every one
-    valid)."""
+def _lm_batch(cfg, shape, seed, device=None):
+    """Tokens (shape) and their next-token labels, on ``device`` (default
+    DEV), from a numpy seed (the labels are the tokens shifted by one: every
+    one valid); for the audio encoder-decoder also its frames, standard
+    normal, (*shape[:-1], T // frame_ratio, d_model) in its dtype."""
     import numpy as np
     import torch
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (*shape[:-1], shape[-1] + 1))
-    return {"tokens": torch.from_numpy(toks[..., :-1].copy()).to(DEV),
-            "labels": torch.from_numpy(toks[..., 1:].copy()).to(DEV)}
+    from repro_torch.models.layers import DTYPES
+    device = device or DEV
+    r = np.random.default_rng(seed)
+    toks = r.integers(0, cfg.vocab_size, (*shape[:-1], shape[-1] + 1))
+    batch = {"tokens": torch.from_numpy(toks[..., :-1].copy()).to(device),
+             "labels": torch.from_numpy(toks[..., 1:].copy()).to(device)}
+    if cfg.arch_type == "audio":
+        batch["frames"] = torch.from_numpy(r.standard_normal(
+            (*shape[:-1], shape[-1] // cfg.frame_ratio, cfg.d_model),
+            np.float32)).to(device, DTYPES[cfg.dtype])
+    return batch
 
 
 def _to_cpu(tree):
@@ -1987,6 +2065,20 @@ def _launches_of_ours():
             "flash_attention": dict(fa.flash_attention.variant_launches),
             "kd_fwd": dict(kd.kd_loss_fwd.variant_launches),
             "kd_bwd": dict(kd.kd_loss_bwd.variant_launches)}
+
+
+def _rel_by_leaf(mu_got, mu_want, p_got, p_want, zero_init):
+    """Relative Frobenius gaps of every leaf's first moment and of the
+    params of every leaf not in ``zero_init`` (flat dicts; ``got`` on the
+    card, ``want`` on the CPU), and the largest."""
+    rel = {"mu": {}, "param": {}}
+    for what, got, want in (("mu", mu_got, mu_want),
+                            ("param", p_got, p_want)):
+        for k, w in want.items():
+            if what == "param" and k in zero_init:
+                continue
+            rel[what][k] = float((got[k].cpu() - w).norm() / w.norm())
+    return rel, max(max(v.values()) for v in rel.values())
 
 
 def phase_lm_train(smi):
@@ -2008,6 +2100,7 @@ def phase_lm_train(smi):
     from repro_torch.models import transformer as tf
     from repro_torch.tree import flatten
 
+    allocated_before = torch.cuda.memory_allocated() / 1e9
     cfg = get_config(LM_ARCH)
     params = tf.init_lm(LM_SEED, cfg, device=DEV)
     steps = {a: make_train_step(cfg, lr=TRAIN_LR, accum=a) for a in (1, 2)}
@@ -2045,7 +2138,8 @@ def phase_lm_train(smi):
           "steady_s_per_step": steady,
           "steady_tokens_per_s": {a: TRAIN_B * TRAIN_T / t
                                   for a, t in steady.items()},
-          "peak_memory_gb": peak, "losses_finite": finite, **launches})
+          "peak_memory_gb": peak, "allocated_before_gb": allocated_before,
+          "losses_finite": finite, **launches})
     if not finite:
         raise RuntimeError(f"lm_train: non-finite losses {runs}")
     if (launches["launches"]["flash_attention"]
@@ -2075,15 +2169,8 @@ def phase_lm_train(smi):
         out[name] = {"loss": float(loss),
                      "seconds": time.perf_counter() - t0}
         mus[name] = state.mu
-    rel = {"mu": {}, "param": {}}
-    for what, got, want in (
-            ("mu", mus["card accum 1"], mus["cpu accum 1"]),
-            ("param", flatten(p_card), flatten(p_cpu))):
-        for k, w in want.items():
-            if what == "param" and k in zero_init:
-                continue
-            rel[what][k] = float((got[k].cpu() - w).norm() / w.norm())
-    worst = max(max(v.values()) for v in rel.values())
+    rel, worst = _rel_by_leaf(mus["card accum 1"], mus["cpu accum 1"],
+                              flatten(p_card), flatten(p_cpu), zero_init)
     l1, l2 = out["card accum 1"]["loss"], out["card accum 2"]["loss"]
     accum_rel = abs(l2 - l1) / abs(l1)
     card_cpu = abs(l1 - out["cpu accum 1"]["loss"]) / abs(l1)
@@ -2100,12 +2187,250 @@ def phase_lm_train(smi):
         raise RuntimeError(f"lm_train twin: card against CPU {worst} "
                            f"(limit {TRAIN_PARAM_RTOL}), accum loss "
                            f"{accum_rel} (limit {TRAIN_ACCUM_RTOL})")
-    del p_card, p_card2, p_cpu
+    # mus holds the card steps' float32 first moments (3.8 GB)
+    del p_card, p_card2, p_cpu, mus, state, batch, b
     torch.cuda.empty_cache()
-    return launches
+    more = {arch: _train_other(arch, smi) for arch in TRAIN_MORE}
+    return launches, more
+
+
+def _cut(full, over) -> str:
+    """The depth and expert cuts of a config, for the emitted lines."""
+    cuts = [f"{over['num_layers']} of {full.num_layers} layers"
+            if "num_layers" in over else f"full depth ({full.num_layers}"
+            + (f" + {full.num_encoder_layers} encoder" if
+               full.num_encoder_layers else "") + " layers)"]
+    if "num_experts" in over:
+        cuts.append(f"{over['num_experts']} of {full.num_experts} experts")
+    elif full.num_experts:
+        cuts.append(f"all {full.num_experts} experts")
+    return ", ".join(cuts)
+
+
+def _train_other(arch, smi):
+    """One of the other families trained like qwen2.5-3b: ``arch`` at full
+    width with TRAIN_MORE's cuts in bf16 (random weights, seed LM_SEED), 2
+    steps at accum 1 then 1 at accum 2 (none for NO_ACCUM2) on one Adam
+    state, on TRAIN_B x
+    TRAIN_T tokens (the MoE models MOE_TRAIN_BT; seamless with its frames).
+    Raises unless every loss is finite and the steps launch no flash and no
+    KD kernel; then its float32 twin (``_train_twin``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import make_train_step
+
+    wall0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **TRAIN_MORE[arch])
+    B, T = MOE_TRAIN_BT if cfg.num_experts else (TRAIN_B, TRAIN_T)
+    allocated_before = torch.cuda.memory_allocated() / 1e9
+    params = _init_serving(cfg)
+    steps = {a: make_train_step(cfg, lr=TRAIN_LR, accum=a) for a in (1, 2)}
+    opt_state = steps[1][1].init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runs = []
+    for accum, i in ((1, 1), (1, 2), (2, 1))[:2 if arch in NO_ACCUM2 else 3]:
+        batch = _lm_batch(cfg, (B, T), 400 + len(runs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = steps[accum][0](params, opt_state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        runs.append({"accum": accum, "step": i, "loss": float(loss),
+                     "seconds": sec, "tokens_per_s": B * T / sec})
+        del batch
+    launches = _launches_of_ours()
+    finite = all(math.isfinite(r["loss"]) for r in runs)
+    line = {"phase": "lm_train", "card": smi,
+            "config": f"{arch} full width, {_cut(full, TRAIN_MORE[arch])} "
+            f"(d_model {cfg.d_model}, {_family(cfg)}, d_ff {cfg.d_ff}), "
+            f"{cfg.dtype}, remat {cfg.remat}, random weights seed {LM_SEED},"
+            f" AdamW lr {TRAIN_LR} "
+            f"({'bf16' if cfg.param_count() > 8e9 else 'f32'} moments)",
+            "params": cfg.param_count(),
+            "params_full_config": full.param_count(),
+            "static_gb_reckoned": 12 * cfg.param_count() / 1e9,
+            "batch": B, "seq": T, "attention": "sdpa_blocked"
+            if T >= 2 * cfg.attn_block else "_sdpa", "steps": runs,
+            "s_per_step_accum1_step2": runs[1]["seconds"],
+            "tokens_per_s_accum1_step2": runs[1]["tokens_per_s"],
+            "s_per_step_accum2": runs[2]["seconds"] if len(runs) > 2
+            else None,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allocated_before_gb": allocated_before,
+            "run_wall_s": time.perf_counter() - wall0,
+            "losses_finite": finite, **launches}
+    if cfg.arch_type == "audio":
+        line["frames"] = T // cfg.frame_ratio
+    emit(line)
+    if not finite:
+        raise RuntimeError(f"lm_train {arch}: non-finite losses {runs}")
+    if (launches["launches"]["flash_attention"]
+            or launches["launches"]["kd_softmax_kl_fwd"]
+            or launches["launches"]["kd_softmax_kl_bwd"]):
+        raise RuntimeError(f"lm_train {arch}: a train step launched a flash "
+                           f"or KD kernel: {launches}")
+    del params, opt_state, steps
+    torch.cuda.empty_cache()
+    twin = _train_twin(arch, full, smi)
+    return {"runs": runs, "twin_max_rel_err": twin}
+
+
+@contextlib.contextmanager
+def _routes_recorded():
+    """Yields a list to which each ``layers.moe_fwd`` call in the block
+    appends its tokens' top-k expert indices, sorted, on the host (taken
+    from its input and router; the wrapper is removed on exit)."""
+    import torch
+    from repro_torch.models import layers as ly
+    moe_fwd, routes = ly.moe_fwd, []
+
+    def recorded(p, c, x, **kw):
+        with torch.no_grad():
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p["router"], dim=-1)
+            routes.append(torch.topk(probs, c.num_experts_per_tok, dim=-1)
+                          .indices.sort(dim=-1).values.cpu())
+        return moe_fwd(p, c, x, **kw)
+
+    ly.moe_fwd = recorded
+    try:
+        yield routes
+    finally:
+        ly.moe_fwd = moe_fwd
+
+
+def _train_twin(arch, full, smi):
+    """A float32 twin of ``full``: 2 layers at full width (TWIN_EXPERTS
+    experts for a MoE model, one group for the hybrid: attn_every 2, 2 + 2
+    layers for the encoder-decoder) takes one train step on the card and
+    the same step on the CPU at B 1 x TWIN_T; raises unless every leaf's
+    first moment and every param not zero at init are within
+    TRAIN_PARAM_RTOL.  A MoE twin also counts, in each layer of the
+    step's forward, the tokens whose top-k differs between the card and
+    the CPU.  Returns the largest gap."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.tree import flatten
+
+    wall0 = time.perf_counter()
+    over = {"num_layers": 2, "dtype": "float32"}
+    if full.num_experts:
+        over["num_experts"] = TWIN_EXPERTS
+    if full.arch_type == "hybrid":
+        over["attn_every"] = 2
+    if full.arch_type == "audio":
+        over["num_encoder_layers"] = 2
+    cfg32 = dataclasses.replace(full, **over)
+    p_card = _init_serving(cfg32)
+    p_cpu = _to_cpu(p_card)
+    zero_init = sorted(k for k, v in flatten(p_cpu).items() if not v.any())
+    batch = _lm_batch(cfg32, (1, TWIN_T), 500, device="cpu")
+    out, mus, seen = {}, {}, {}
+    for name, params, dev in (("card", p_card, DEV), ("cpu", p_cpu, "cpu")):
+        step, opt = make_train_step(cfg32, lr=TRAIN_LR)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        state = opt.init(params)
+        t0 = time.perf_counter()
+        with _routes_recorded() as routes:
+            _, _, loss = step(params, state, b)
+        out[name] = {"loss": float(loss),
+                     "seconds": time.perf_counter() - t0}
+        mus[name] = state.mu
+        # the forward's layers in order (remat records them again in the
+        # backward, after these)
+        seen[name] = routes[:cfg32.num_layers]
+    routes = ([int((a != b).any(dim=-1).sum())
+               for a, b in zip(seen["card"], seen["cpu"])]
+              if cfg32.num_experts else None)
+    rel, worst = _rel_by_leaf(mus["card"], mus["cpu"], flatten(p_card),
+                              flatten(p_cpu), zero_init)
+    l_card, l_cpu = out["card"]["loss"], out["cpu"]["loss"]
+    ok = worst <= TRAIN_PARAM_RTOL
+    line = {"check": f"lm_train {arch} float32 twin, full width, "
+            + ", ".join(f"{k} {v}" for k, v in over.items()
+                        if k != "dtype")
+            + f": one step on the card and on the CPU, B 1 x T {TWIN_T}",
+            "card": smi, "params": cfg32.param_count(), "steps": out,
+            "rel_err_by_leaf": rel,
+            "params_not_held (zero at init: the update alone)": zero_init,
+            "max_rel_err": worst, "rtol": TRAIN_PARAM_RTOL,
+            "card_vs_cpu_loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+            "run_wall_s": time.perf_counter() - wall0, "ok": ok}
+    if routes is not None:
+        line["tokens_whose_top_k_differs_by_layer"] = routes
+        line["tokens_a_layer"] = TWIN_T
+    emit(line)
+    if not ok:
+        raise RuntimeError(f"lm_train {arch} twin: card against CPU {worst} "
+                           f"(limit {TRAIN_PARAM_RTOL}), top-k differing "
+                           f"{routes}")
+    del p_card, p_cpu, mus, state, batch, b
+    torch.cuda.empty_cache()
+    return worst
 
 
 # ----------------------------------------------------------- phase 4e
+def _distill_step_checked(cfg, step, path, batch, students, opt_state,
+                          teacher, want_fa: int, want_kd: int, regime):
+    """One distill step, timed, with the launches it made; raises unless
+    the flash kernels took exactly ``want_fa`` ``tensor_core`` launches,
+    the KD kernels ``want_kd`` forward and ``want_kd`` backward launches of
+    ``regime``, and the merge none."""
+    import torch
+    from repro_torch.kernels import reset_launches
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, loss = step(students, opt_state, teacher, batch)
+    torch.cuda.synchronize()
+    r = {"path": path, "loss": float(loss),
+         "seconds": time.perf_counter() - t0, **_launches_of_ours()}
+    kd_want = {"rows": 0, "stream": 0}
+    kd_want[regime] = want_kd
+    ok = (r["flash_attention"] == {"v1": 0, "tensor_core": want_fa,
+                                   "decode": 0}
+          and r["kd_fwd"] == kd_want and r["kd_bwd"] == kd_want
+          and r["launches"]["fused_merge"] == 0)
+    if not ok:
+        emit({"phase": "lm_distill", "config": cfg.name, "failed_step": r})
+        raise RuntimeError(f"lm_distill {cfg.name} {path} step: expected "
+                           f"{want_fa} tensor_core flash launches and KD "
+                           f"forward and backward launches {kd_want}, "
+                           f"counted {r}")
+    return r
+
+
+def _kd_in_step(prof, V: int) -> dict:
+    """The KD stream kernels' device µs and calls in a profiled distill
+    step, beside the bounds of ``_kd_timing`` at DISTILL_ROWS x V in bf16."""
+    from torch.autograd import DeviceType
+    kd_us = {}
+    for key in ("kd_fwd_stream_kernel", "kd_bwd_chunk_kernel"):
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and key in e.key]
+        kd_us[key] = {"device_us": sum(e.self_device_time_total
+                                       for e in ev),
+                      "calls": sum(e.count for e in ev)}
+    elt = 2
+    T = DISTILL_ROWS
+    # the bytes and operations of _kd_timing's bounds
+    fwd_bound = bound_ms(2 * T * V * elt + 20 * T, KD_FWD_OPS_PER_ELEM * T * V)
+    bwd_bound = bound_ms(3 * T * V * elt + 20 * T, KD_BWD_OPS_PER_ELEM * T * V)
+    kd_us["kd_fwd_stream_kernel"].update(bound_ms=fwd_bound[0],
+                                         bound_by=fwd_bound[1])
+    kd_us["kd_bwd_chunk_kernel"].update(bound_ms=bwd_bound[0],
+                                        bound_by=bwd_bound[1])
+    return kd_us
+
+
 def phase_lm_distill(smi):
     """The paper's FedSiKD step at LLM scale: teacher full qwen2.5-3b
     (bf16, random weights), students its ``as_student()`` (18 layers) in D
@@ -2123,15 +2448,14 @@ def phase_lm_distill(smi):
     to the timed one's; every loss is finite; the replicas are equal after
     ``sync``; and the teacher's bytes are unchanged."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import kd_softmax_kl as kd
-    from repro_torch.kernels import reset_launches
     from repro_torch.launch.steps import make_fedsikd_distill_step
     from repro_torch.models import transformer as tf
     from repro_torch.tree import flatten
 
+    allocated_before = torch.cuda.memory_allocated() / 1e9
     cfg = get_config(LM_ARCH)
     D = len(DISTILL_CLUSTERS)
     teacher = tf.init_lm(LM_SEED, cfg, device=DEV)
@@ -2156,28 +2480,13 @@ def phase_lm_distill(smi):
     runs = []
 
     def run(path, i, prof=None):
-        batch = _lm_batch(cfg, (D, 1, DISTILL_T), 300 + i)
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, loss = makers[path][0](students, opt_state, teacher, batch)
-        torch.cuda.synchronize()
-        r = {"path": path, "batch": i, "loss": float(loss),
-             "seconds": time.perf_counter() - t0, "profiled": bool(prof),
-             **_launches_of_ours()}
-        kd_want = {"rows": 0, "stream": 0}
-        kd_want[regime] = want_kd[path]
-        ok = (r["flash_attention"] == {"v1": 0, "tensor_core":
-                                       want_fa[path], "decode": 0}
-              and r["kd_fwd"] == kd_want and r["kd_bwd"] == kd_want
-              and r["launches"]["fused_merge"] == 0)
+        r = _distill_step_checked(
+            cfg, makers[path][0], path, _lm_batch(cfg, (D, 1, DISTILL_T),
+                                                  300 + i),
+            students, opt_state, teacher, want_fa[path], want_kd[path],
+            regime)
+        r.update(batch=i, profiled=bool(prof))
         runs.append(r)
-        if not ok:
-            emit({"phase": "lm_distill", "failed_step": r})
-            raise RuntimeError(f"lm_distill {path} step: expected "
-                               f"{want_fa[path]} tensor_core flash launches "
-                               f"and KD forward and backward launches "
-                               f"{kd_want}, counted {r}")
         return r
 
     run("default", 0)
@@ -2197,22 +2506,7 @@ def phase_lm_distill(smi):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run("default", 2, prof=True)
-    kd_us = {}
-    for key in ("kd_fwd_stream_kernel", "kd_bwd_chunk_kernel"):
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and key in e.key]
-        kd_us[key] = {"device_us": sum(e.self_device_time_total
-                                       for e in ev),
-                      "calls": sum(e.count for e in ev)}
-    elt = 2
-    T, V = DISTILL_ROWS, cfg.vocab_size
-    # the bytes and operations of _kd_timing's bounds
-    fwd_bound = bound_ms(2 * T * V * elt + 20 * T, KD_FWD_OPS_PER_ELEM * T * V)
-    bwd_bound = bound_ms(3 * T * V * elt + 20 * T, KD_BWD_OPS_PER_ELEM * T * V)
-    kd_us["kd_fwd_stream_kernel"].update(bound_ms=fwd_bound[0],
-                                         bound_by=fwd_bound[1])
-    kd_us["kd_bwd_chunk_kernel"].update(bound_ms=bwd_bound[0],
-                                        bound_by=bwd_bound[1])
+    kd_us = _kd_in_step(prof, cfg.vocab_size)
     del snapshot
     sync(students)
     torch.cuda.synchronize()
@@ -2242,8 +2536,9 @@ def phase_lm_distill(smi):
           "kd_in_step": kd_us,
           "loss_rel_to_default": gaps, "loss_rtol": rtol,
           "profiled_repeat_rel": repeat,
-          "peak_memory_gb": peak, "replicas_equal_after_sync":
-          replicas_equal, "teacher_unchanged": teacher_same})
+          "peak_memory_gb": peak, "allocated_before_gb": allocated_before,
+          "replicas_equal_after_sync": replicas_equal,
+          "teacher_unchanged": teacher_same})
     if not finite:
         raise RuntimeError(f"lm_distill: non-finite losses {runs}")
     if max(gaps.values()) > rtol or repeat > rtol:
@@ -2263,7 +2558,198 @@ def phase_lm_distill(smi):
                                      for r in runs)}
     del students, opt_state, teacher, flat, makers
     torch.cuda.empty_cache()
-    return counts, kd_us
+    more = {arch: _distill_other(arch, smi) for arch in DISTILL_MORE}
+    return counts, kd_us, more
+
+
+def _distill_config(arch):
+    """``arch``'s teacher config in ``_distill_other``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **DISTILL_MORE[arch])
+
+
+def _teacher_attention_launches(cfg) -> int:
+    """The flash launches of one teacher forward in a distill step: its
+    attention layers (``_expected_flash``'s prefill count: none for MLA or
+    RWKV, the shared block's applications for the hybrid, the decoder's
+    self-attention layers for the encoder-decoder), once for the merged
+    batch, or once a replica for a MoE teacher (one forward a replica, as
+    JAX's vmap)."""
+    layers = _expected_flash(cfg, 0)["tensor_core"]
+    return layers * (len(DISTILL_CLUSTERS) if cfg.num_experts else 1)
+
+
+def _distill_other(arch, smi):
+    """The FedSiKD step of one of the other families: the teacher ``arch``
+    at full width with DISTILL_MORE's cuts (bf16, random weights, seed
+    LM_SEED), students its ``as_student()`` in D = len(DISTILL_CLUSTERS)
+    replicas, 1 x DISTILL_T tokens a replica (seamless with its frames).
+    Two default steps, then from the students they leave the default step
+    under the profiler (the KD kernels' device time beside their bound at
+    the model's vocabulary), the teacher-in-grad step and, but for the
+    encoder-decoder (its forward returns no hidden states), the
+    vocab-chunked step; then ``sync``.  Raises as ``phase_lm_distill``
+    does: exact flash and KD launches (``_teacher_attention_launches`` a
+    teacher forward, twice D times the teacher's attention layers in the
+    teacher-in-grad step), the other paths' losses within KD_TOL's bf16
+    rtol of the default one, finite losses, equal replicas after ``sync``
+    and the teacher's bytes unchanged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kd_softmax_kl as kd
+    from repro_torch.launch.steps import make_fedsikd_distill_step
+    from repro_torch.tree import flatten
+
+    wall0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = _distill_config(arch)
+    D = len(DISTILL_CLUSTERS)
+    allocated_before = torch.cuda.memory_allocated() / 1e9
+    teacher = _init_serving(cfg)
+    teacher_host = {k: v.cpu() for k, v in flatten(teacher).items()}
+    paths = {"default": {}, "teacher_in_grad": {"teacher_in_grad": True}}
+    if cfg.arch_type != "audio":
+        paths["vocab_chunk"] = {"vocab_chunk": DISTILL_CHUNK}
+    makers = {path: make_fedsikd_distill_step(
+        cfg, DISTILL_CLUSTERS, lr=DISTILL_LR, **kw)
+        for path, kw in paths.items()}
+    _, sync, init_students, opt, s_cfg = makers["default"]
+    students = init_students(LM_SEED + 1, device=DEV)
+    opt_state = opt.init(students)
+    flat = flatten(students)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_fa = _teacher_attention_launches(cfg)
+    want_fa = {"default": t_fa, "vocab_chunk": t_fa,
+               "teacher_in_grad": 2 * D * _expected_flash(cfg, 0)[
+                   "tensor_core"]}
+    want_kd = {"default": 1, "vocab_chunk": 0, "teacher_in_grad": 1}
+    regime = kd.plan(DISTILL_ROWS, cfg.vocab_size, torch.cuda
+                     .get_device_properties(0).multi_processor_count)[
+                         "regime"]
+    runs = []
+
+    def run(path, i, prof=False):
+        r = _distill_step_checked(
+            cfg, makers[path][0], path, _lm_batch(cfg, (D, 1, DISTILL_T),
+                                                  600 + i),
+            students, opt_state, teacher, want_fa[path], want_kd[path],
+            regime)
+        r.update(batch=i, profiled=prof)
+        runs.append(r)
+
+    run("default", 0)
+    run("default", 1)
+    snapshot = _to_cpu(flat)                      # on the host
+    prof_s = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run("default", 2, prof=True)
+    kd_us = _kd_in_step(prof, cfg.vocab_size)
+    prof_s = time.perf_counter() - prof_s
+    del prof
+    for path in paths:
+        if path != "default":
+            for k, v in flat.items():
+                v.copy_(snapshot[k])
+            run(path, 2)
+    del snapshot
+    sync(students)
+    torch.cuda.synchronize()
+    replicas_equal = all(all(torch.equal(v[d], v[0]) for d in range(1, D))
+                         for v in flat.values())
+    teacher_same = all(torch.equal(v.cpu(), teacher_host[k])
+                       for k, v in flatten(teacher).items())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ref = runs[2]["loss"]
+    rtol = KD_TOL["bfloat16"][0]
+    gaps = {r["path"]: abs(r["loss"] - ref) / abs(ref) for r in runs[3:]}
+    finite = all(math.isfinite(r["loss"]) for r in runs)
+    emit({"phase": "lm_distill", "card": smi,
+          "config": f"teacher {arch} full width, "
+          f"{_cut(full, DISTILL_MORE[arch])} ({cfg.param_count()} params), "
+          f"students {s_cfg.num_layers} layers"
+          + (f" + {s_cfg.num_encoder_layers} encoder"
+             if s_cfg.num_encoder_layers else "")
+          + f" ({s_cfg.param_count()} params each), D {D}, clusters "
+          f"{list(DISTILL_CLUSTERS)}, 1 x {DISTILL_T} tokens a replica"
+          + (f" and {DISTILL_T // cfg.frame_ratio} frames"
+             if cfg.arch_type == "audio" else "")
+          + f", {cfg.dtype}, lr {DISTILL_LR}, random weights",
+          "teacher_params": cfg.param_count(),
+          "student_params": s_cfg.param_count(),
+          "static_gb_reckoned": (2 * cfg.param_count()
+                                 + 12 * D * s_cfg.param_count()) / 1e9,
+          "steps": [{k: r[k] for k in ("path", "batch", "loss", "seconds",
+                                       "profiled", "flash_attention",
+                                       "kd_fwd", "kd_bwd")} for r in runs],
+          "default_s_per_step": runs[1]["seconds"],
+          "default_tokens_per_s": D * DISTILL_T / runs[1]["seconds"],
+          "kd_rows": DISTILL_ROWS, "vocab": cfg.vocab_size,
+          "kd_regime": regime, "kd_in_step": kd_us,
+          "expected_teacher_flash": want_fa,
+          "loss_rel_to_default": gaps, "loss_rtol": rtol,
+          "peak_memory_gb": peak, "allocated_before_gb": allocated_before,
+          "replicas_equal_after_sync": replicas_equal,
+          "teacher_unchanged": teacher_same,
+          "profiled_step_wall_s": prof_s,
+          "run_wall_s": time.perf_counter() - wall0})
+    if not finite:
+        raise RuntimeError(f"lm_distill {arch}: non-finite losses {runs}")
+    if max(gaps.values()) > rtol:
+        raise RuntimeError(f"lm_distill {arch}: losses from one state "
+                           f"differ by {gaps} (limit {rtol})")
+    if not replicas_equal:
+        raise RuntimeError(f"lm_distill {arch}: replicas differ after sync")
+    if not teacher_same:
+        raise RuntimeError(f"lm_distill {arch}: the step wrote to the "
+                           "teacher")
+    if any(v["calls"] != 1 for v in kd_us.values()):
+        raise RuntimeError(f"lm_distill {arch}: the profiler saw {kd_us}")
+    counts = {k: sum(r["launches"][k] for r in runs)
+              for k in ("kd_softmax_kl_fwd", "kd_softmax_kl_bwd",
+                        "flash_attention")}
+    del students, opt_state, teacher, teacher_host, flat, makers
+    torch.cuda.empty_cache()
+    return {"counts": counts, "kd_in_step": kd_us,
+            "steps": len(runs)}
+
+
+# ----------------------------------------------------------- phase 4f
+# the port's examples that chip_smoke.py runs on the card, each in its own
+# process as a user runs it, and each one's time limit
+EXAMPLES_ON_CARD = ("quickstart_torch.py", "llm_distill_torch.py")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def phase_examples(smi):
+    """Each of EXAMPLES_ON_CARD as a user runs it: ``python
+    examples/NAME`` from the repository root with ``src`` on PYTHONPATH, on
+    its default device (the card).  Prints one line a run (exit code,
+    seconds, its last line of output) and raises unless each exits 0 within
+    EXAMPLE_TIMEOUT_S (``subprocess.run`` kills it then)."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    out = {}
+    for name in EXAMPLES_ON_CARD:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=EXAMPLE_TIMEOUT_S)
+        lines = proc.stdout.strip().splitlines()
+        out[name] = {"rc": proc.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "last_line": lines[-1] if lines else ""}
+        emit({"phase": "examples", "card": smi,
+              "example": f"examples/{name}", **out[name]})
+        if proc.returncode:
+            raise RuntimeError(f"examples/{name} exited {proc.returncode}: "
+                               f"{proc.stderr[-3000:]}")
+    return out
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2455,7 +2941,7 @@ def _fa_timing(shape, seed):
 
 
 def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
-                 variants, smi, *, fa_paths, distill_kd):
+                 variants, smi, *, fa_paths, distill_kd, distill_more):
     import torch
     rows_path = PATH_ROWS
     kd_fwd, kd_bwd = _kd_timing(rows_path, 10, torch.float32, 20)
@@ -2510,7 +2996,12 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
          "launches_by_path": kd_paths, "path": "run_federated packed",
          "in_lm_distill_step": {
              "shape": f"T={DISTILL_ROWS} V=151936 bfloat16",
-             **distill_kd["kd_fwd_stream_kernel"]}},
+             **distill_kd["kd_fwd_stream_kernel"]},
+         "in_lm_distill_step_of": {
+             a: {"shape": f"T={DISTILL_ROWS} V="
+                 f"{_distill_config(a).vocab_size} bfloat16",
+                 **m["kd_in_step"]["kd_fwd_stream_kernel"]}
+             for a, m in distill_more.items()}},
         {"name": "kd_softmax_kl_bwd", "route": "cuda",
          "source": src + "kd_softmax_kl.cu",
          "replaces": "src/repro/kernels/kd_softmax_kl.py:118",
@@ -2519,7 +3010,12 @@ def phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
          "launches_by_path": kd_paths, "path": "run_federated packed",
          "in_lm_distill_step": {
              "shape": f"T={DISTILL_ROWS} V=151936 bfloat16",
-             **distill_kd["kd_bwd_chunk_kernel"]}},
+             **distill_kd["kd_bwd_chunk_kernel"]},
+         "in_lm_distill_step_of": {
+             a: {"shape": f"T={DISTILL_ROWS} V="
+                 f"{_distill_config(a).vocab_size} bfloat16",
+                 **m["kd_in_step"]["kd_bwd_chunk_kernel"]}
+             for a, m in distill_more.items()}},
         {"name": "fused_merge", "route": "cuda",
          "source": src + "fused_merge.cu",
          "replaces": "src/repro/kernels/fused_merge.py:30",
@@ -2853,7 +3349,8 @@ def main() -> int:
     scale_counts = phase_scale_path(ds, runtime_h)
     lm_counts, lm_variants, serve_more = phase_lm_serve(smi)
     phase_lm_train(smi)
-    distill_counts, distill_kd = phase_lm_distill(smi)
+    distill_counts, distill_kd, distill_more = phase_lm_distill(smi)
+    phase_examples(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),
                     ("fused_merge", merge_counts),
@@ -2880,7 +3377,12 @@ def main() -> int:
                       for m in serve_more.values() if m["expected_flash"]),
                     ("kd_softmax_kl_fwd", distill_counts),
                     ("kd_softmax_kl_bwd", distill_counts),
-                    ("flash_attention", distill_counts)):
+                    ("flash_attention", distill_counts),
+                    *((k, m["counts"]) for m in distill_more.values()
+                      for k in ("kd_softmax_kl_fwd", "kd_softmax_kl_bwd")),
+                    *(("flash_attention", m["counts"])
+                      for a, m in distill_more.items()
+                      if _teacher_attention_launches(_distill_config(a)))):
         if c[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")
     path_counts = {"kd_softmax_kl_fwd": packed_counts["kd_softmax_kl_fwd"],
@@ -2909,7 +3411,11 @@ def main() -> int:
                    for k, c in scale_counts.items()
                    if k.startswith("fedsikd")},
                 "lm_distill (6 steps, 5 on the KD kernels)":
-                distill_counts["kd_softmax_kl_fwd"]}
+                distill_counts["kd_softmax_kl_fwd"],
+                **{f"lm_distill {a} ({m['steps']} steps, "
+                   f"{m['counts']['kd_softmax_kl_fwd']} on the KD kernels)":
+                   m["counts"]["kd_softmax_kl_fwd"]
+                   for a, m in distill_more.items()}}
     fa_paths = {f"{LM_ARCH} serve": lm_counts["flash_attention"],
                 **{f"{a} serve" + (f" ({SERVE_DEPTH[a]} layers)"
                                    if a in SERVE_DEPTH else ""):
@@ -2917,9 +3423,13 @@ def main() -> int:
                    for a, m in serve_more.items()},
                 "lm_distill teacher (6 steps)":
                 distill_counts["flash_attention"],
-                "lm_train": 0}
+                **{f"lm_distill {a} teacher ({m['steps']} steps)":
+                   m["counts"]["flash_attention"]
+                   for a, m in distill_more.items()},
+                "lm_train (every model)": 0}
     phase_timing(errs, path_counts, merge_paths, kmeans_paths, kd_paths,
-                 lm_variants, smi, fa_paths=fa_paths, distill_kd=distill_kd)
+                 lm_variants, smi, fa_paths=fa_paths, distill_kd=distill_kd,
+                 distill_more=distill_more)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -257,7 +257,8 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
     The loss paths, as in JAX:
 
     - default: the teacher's logits from one forward of the whole batch
-      under ``torch.no_grad()`` (on the card the flash kernel), the
+      under ``torch.no_grad()`` (on the card the flash kernel; a MoE
+      teacher one forward a replica, as JAX's ``vmap``), the
       students' logits from their training forwards, and the D replicas'
       loss in one call of ``ops.kd_distillation_loss_lanes`` (the KD
       kernels on the card; its (D,) per-replica means are JAX's
@@ -265,7 +266,8 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
     - ``teacher_in_grad=True``: each replica's teacher forward inside the
       student's checkpointed closure, so the backward recomputes the
       teacher; the loss as in the default;
-    - ``vocab_chunk > 0``: the teacher's final hidden states once, and
+    - ``vocab_chunk > 0``: the teacher's final hidden states once (a MoE
+      teacher's once a replica), and
       each replica's loss by ``chunked_kd_loss``, no KD kernel; not for
       the audio encoder-decoder, whose forward returns no hidden states
       (``ValueError``; JAX's step fails on it with a ``TypeError``).
@@ -309,6 +311,18 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
         s_logits, _ = mod.forward(student, s_cfg, b, train=True)
         return _drop_prefix(s_logits)
 
+    def _teacher_out(teacher, batch, **kw):
+        """The teacher's forward of every replica's micro-batch under
+        ``no_grad``, merged on the batch axis: one forward of the merged
+        batch, or for a MoE teacher one a replica, as JAX's ``vmap`` over
+        the replicas runs it (routing ranks and caps a forward's tokens
+        together)."""
+        with torch.no_grad():
+            if not cfg.num_experts:
+                return mod.forward(teacher, cfg, _merged(batch), **kw)[0]
+            return torch.cat([mod.forward(teacher, cfg, _replica(batch, d),
+                                          **kw)[0] for d in range(D)])
+
     def _naive(student, teacher, b):
         with torch.no_grad():
             t_logits, _ = mod.forward(teacher, cfg, b)
@@ -328,11 +342,9 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
             return _lanes_loss(torch.stack([s for s, _ in pairs]),
                                torch.stack([t for _, t in pairs]), labels)
         if vocab_chunk:
-            with torch.no_grad():
-                t_hidden, _ = tf.forward(teacher, cfg, _merged(batch),
-                                         return_hidden=True)
-                t_hidden = _drop_prefix(t_hidden)
-                t_hidden = t_hidden.reshape(D, -1, t_hidden.shape[-1])
+            t_hidden = _drop_prefix(_teacher_out(teacher, batch,
+                                                 return_hidden=True))
+            t_hidden = t_hidden.reshape(D, -1, t_hidden.shape[-1])
             w_t = _head(teacher).detach()
             out = []
             for d in range(D):
@@ -345,9 +357,7 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
                     labels[d].reshape(-1), tau=kd_tau, alpha=kd_alpha,
                     chunk=vocab_chunk))
             return torch.stack(out)
-        with torch.no_grad():
-            t_logits, _ = mod.forward(teacher, cfg, _merged(batch))
-            t_logits = _drop_prefix(t_logits)
+        t_logits = _drop_prefix(_teacher_out(teacher, batch))
         s_logits = torch.stack([_student_logits(reps[d], _replica(batch, d))
                                 for d in range(D)])
         return _lanes_loss(s_logits, t_logits, labels)

@@ -115,6 +115,18 @@ def test_kd_regimes_match_plain(dev, T, V, dtype):
     _kd_call_checked(s, t, y, chip_smoke._lane_grads(y, T), 2.0, 0.5, regime)
 
 
+@pytest.mark.parametrize("T,V", chip_smoke.KD_BF16_CASES, ids=str)
+def test_kd_distill_vocabularies_match_plain(dev, T, V):
+    """``chip_smoke.py``'s bf16 KD cases at the distill steps' vocabularies
+    (65,536, 102,400 and 256,206: rows 6 mod 8 elements long, so
+    consecutive rows start at other 16-byte alignments), with its inputs
+    drawn on the card (``_kd_inputs_on_card``) and its tolerances."""
+    s, t, y = chip_smoke._kd_inputs_on_card(T, V, torch.bfloat16, V)
+    regime = kd.plan(T, V, torch.cuda.get_device_properties(
+        dev).multi_processor_count)["regime"]
+    _kd_call_checked(s, t, y, chip_smoke._lane_grads(y, T), 2.0, 0.5, regime)
+
+
 @pytest.mark.parametrize("T,V", [(64, 10), (300, 32003), (5, 50257)],
                          ids=str)
 @pytest.mark.parametrize("tau,alpha", [(0.7, 0.25), (3.0, 1.0)])

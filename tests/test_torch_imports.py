@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not the port's example (``examples/serve_torch.py``)
+``chip_smoke.py`` and not the port's examples (``examples/*_torch.py``)
 imports JAX, jaxlib or the JAX package (``repro``), and
 ``triton`` is never imported at module level (the CPU test machines have
 none, and the tests import every module)."""
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py"]
+    ROOT / "chip_smoke.py", *sorted((ROOT / "examples").glob("*_torch.py"))]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,6 +37,10 @@ def test_no_jax_or_reference_package_imports(path):
 def test_the_walk_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
+    for example in ("quickstart", "fedsikd_vs_baselines", "client_churn",
+                    "async_stragglers", "fault_tolerance", "llm_distill",
+                    "serve"):
+        assert f"examples/{example}_torch.py" in names
     assert "src/repro_torch/fed/rounds.py" in names
     assert "src/repro_torch/kernels/ops.py" in names
     for module in ("configs/base.py", "configs/qwen2_5_3b.py",
