@@ -51,7 +51,13 @@ CPU step, and runs the paper's FedSiKD step at LLM scale (phase
 teacher and 2 students of 18 layers, on each loss path: the teacher's
 forward on the flash kernel, the students' loss in one call of the KD
 kernels, or none when vocab-chunked; then each of the five other families
-as teacher, ``DISTILL_MORE``), then runs ``examples/quickstart_torch.py``
+as teacher, ``DISTILL_MORE``), then sizes and bounds every (architecture x
+input shape) step and each LM step it timed on fake tensors in 8 host
+processes (phase ``dryrun``: ``repro_torch.launch.dryrun`` and
+``analysis``; each timed step's roofline share and MFU beside its
+measured ms, its run's predicted peak beside the measured one, raising
+over a share of 1.05 or under 0.8 of the peak), then runs
+``examples/quickstart_torch.py``
 and ``examples/llm_distill_torch.py`` on the card as a user runs them
 (phase ``examples``). It checks that each path went through
 its kernels (the loop engine's merge one multi-leaf launch a round, the
@@ -100,11 +106,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, the
-# float32 rate outside the tensor cores and the dense bf16 tensor-core rate.
-# Every bound below uses these.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+# float32 rate outside the tensor cores and the dense bf16 tensor-core rate,
+# kept in the dry run's roofline module.  Every bound below uses these.
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, PEAK_FLOPS)
 # Operations per logit element, counted from the kernels' arithmetic
 # (exponentials counted as one operation each).
 KD_FWD_OPS_PER_ELEM = 16
@@ -1705,14 +1710,26 @@ def _lm_prompt(cfg):
                             ).to(DEV)
 
 
-def phase_lm_serve(smi):
+def _note(timed, group, arch, cfg, kind, spec, ms, peak_gb, **kw):
+    """One timed LM step for the dry-run phase: its config (with its
+    cuts), kind, batch (``INPUT_SHAPES``'s keys), measured ms, the measured
+    peak of its run (``group``: the steps one peak covers) and the dry
+    run's keywords (accum, the distill path and replicas)."""
+    timed.append({"group": group, "arch": arch, "cfg": cfg, "kind": kind,
+                  "spec": {**spec, "kind": "train" if kind == "fedsikd"
+                           else kind},
+                  "ms": ms, "peak_gb": peak_gb, "kw": kw})
+
+
+def phase_lm_serve(smi, timed):
     """The served model's main path: full qwen2.5-3b (36 layers, d_model
     2048, 16/2 heads, head_dim 128, vocab 151936, bf16), a prefill of
     LM_B x LM_PROMPT tokens and LM_DECODE greedy decode steps, after one
     untimed warm-up serve.  Every attention is one flash-attention launch,
     so the path makes L x (1 + LM_DECODE) of them.  Then a float32 copy
     with 2 layers at the same widths serves the same traffic, and each
-    step's logits are held to a full forward of the same tokens."""
+    step's logits are held to a full forward of the same tokens.  Each
+    served model's prefill and decode step go into ``timed``."""
     import dataclasses
 
     import torch
@@ -1742,6 +1759,13 @@ def phase_lm_serve(smi):
     want_fa = cfg.num_layers * (1 + LM_DECODE)
     want_variants = {"v1": 0, "tensor_core": cfg.num_layers,
                      "decode": cfg.num_layers * LM_DECODE}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    group = f"lm_serve {LM_ARCH}"
+    _note(timed, group, LM_ARCH, cfg, "prefill",
+          {"seq_len": LM_PROMPT, "global_batch": LM_B}, pre_s * 1e3, peak)
+    _note(timed, group, LM_ARCH, cfg, "decode",
+          {"seq_len": LM_PROMPT + LM_DECODE, "global_batch": LM_B},
+          dec_s * 1e3 / LM_DECODE, peak)
     emit({"phase": "lm_serve", "card": smi,
           "config": f"{LM_ARCH} full width and depth ({cfg.num_layers} "
           f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
@@ -1753,7 +1777,7 @@ def phase_lm_serve(smi):
           "prefill_tokens_per_s": LM_B * LM_PROMPT / pre_s,
           "decode_ms_per_token": dec_s * 1e3 / LM_DECODE,
           "decode_tokens_per_s": LM_B * LM_DECODE / dec_s,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "peak_memory_gb": peak,
           "allocated_before_gb": allocated_before,
           "generated_tokens_row0": toks[0].tolist(),
           "logits_finite": finite, "launches": counts,
@@ -1796,7 +1820,7 @@ def phase_lm_serve(smi):
     # want is a view of full's 2 x 4128 x 151936 float32 logits (5.0 GB)
     del params, logits, full, want, got, gap
     torch.cuda.empty_cache()
-    more = {arch: _serve_other(arch, smi) for arch in SERVE_MORE}
+    more = {arch: _serve_other(arch, smi, timed) for arch in SERVE_MORE}
     return counts, variants, more
 
 
@@ -1859,7 +1883,7 @@ def _family(cfg) -> str:
     return (f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim {cfg.hd}")
 
 
-def _serve_other(arch, smi):
+def _serve_other(arch, smi, timed):
     """One of the other served models at full width (random weights, seed
     LM_SEED; a VLM's prefix and an audio model's frames standard normal
     from a seed), at full depth or the depth SERVE_DEPTH gives:
@@ -1870,7 +1894,7 @@ def _serve_other(arch, smi):
     launches and the logits are finite; a depth-cut model's decode, and a
     CHECK_FULL_DEPTH model's, is then held to a full forward
     (``_check_decode``).  Returns the launch counts and the expected flash
-    launches."""
+    launches; the prefill and a decode step go into ``timed``."""
     import dataclasses
 
     import numpy as np
@@ -1922,6 +1946,15 @@ def _serve_other(arch, smi):
            + f"), capacity factor {cfg.capacity_factor}"
            if cfg.num_experts else "")
     positions = P + cfg.prefix_len
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    spec = {"global_batch": SERVE_B}
+    if audio:
+        spec["frames"] = frames.shape[1]
+    _note(timed, f"lm_serve {arch}", arch, cfg, "prefill",
+          {**spec, "seq_len": positions}, pre_s * 1e3, peak)
+    _note(timed, f"lm_serve {arch}", arch, cfg, "decode",
+          {**spec, "seq_len": positions + SERVE_DECODE},
+          dec_s * 1e3 / SERVE_DECODE, peak)
     line = {"phase": "lm_serve", "card": smi,
             "config": f"{arch} full width, {depth} (d_model {cfg.d_model}, "
             f"{_family(cfg)}, d_ff {cfg.d_ff} {cfg.activation}{moe}, vocab "
@@ -1935,7 +1968,7 @@ def _serve_other(arch, smi):
             "prefill_tokens_per_s": SERVE_B * positions / pre_s,
             "decode_ms_per_token": dec_s * 1e3 / SERVE_DECODE,
             "decode_tokens_per_s": SERVE_B * SERVE_DECODE / dec_s,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_memory_gb": peak,
             "allocated_before_serve_gb": resident / 1e9,
             "generated_tokens_row0": toks[0].tolist(),
             "logits_finite": finite, "launches": counts,
@@ -2081,7 +2114,7 @@ def _rel_by_leaf(mu_got, mu_want, p_got, p_want, zero_init):
     return rel, max(max(v.values()) for v in rel.values())
 
 
-def phase_lm_train(smi):
+def phase_lm_train(smi, timed):
     """Training at LLM scale: full qwen2.5-3b in bf16 (random weights, seed
     LM_SEED), TRAIN_STEPS steps of ``make_train_step`` at accum 1 then at
     accum 2 on TRAIN_B x TRAIN_T tokens, one Adam state throughout.
@@ -2090,7 +2123,8 @@ def phase_lm_train(smi):
     float32 twin cut to 2 layers at full width takes one step on the card
     and the same step on the CPU (the path the tests hold to JAX): params
     per leaf within TRAIN_PARAM_RTOL, and its accum-2 loss within
-    TRAIN_ACCUM_RTOL of its accum-1 loss."""
+    TRAIN_ACCUM_RTOL of its accum-1 loss.  The steady step of each accum
+    goes into ``timed``."""
     import dataclasses
 
     import torch
@@ -2127,6 +2161,10 @@ def phase_lm_train(smi):
                                  if r["accum"] == a and r["step"] > 1)
               for a in (1, 2)}
     finite = all(math.isfinite(r["loss"]) for r in runs)
+    for a in (1, 2):
+        _note(timed, f"lm_train {LM_ARCH}", LM_ARCH, cfg, "train",
+              {"seq_len": TRAIN_T, "global_batch": TRAIN_B},
+              steady[a] * 1e3, peak, accum=a)
     emit({"phase": "lm_train", "card": smi,
           "config": f"{LM_ARCH} full width and depth ({cfg.num_layers} "
           f"layers), {cfg.dtype}, remat {cfg.remat}, random weights seed "
@@ -2190,7 +2228,7 @@ def phase_lm_train(smi):
     # mus holds the card steps' float32 first moments (3.8 GB)
     del p_card, p_card2, p_cpu, mus, state, batch, b
     torch.cuda.empty_cache()
-    more = {arch: _train_other(arch, smi) for arch in TRAIN_MORE}
+    more = {arch: _train_other(arch, smi, timed) for arch in TRAIN_MORE}
     return launches, more
 
 
@@ -2207,14 +2245,15 @@ def _cut(full, over) -> str:
     return ", ".join(cuts)
 
 
-def _train_other(arch, smi):
+def _train_other(arch, smi, timed):
     """One of the other families trained like qwen2.5-3b: ``arch`` at full
     width with TRAIN_MORE's cuts in bf16 (random weights, seed LM_SEED), 2
     steps at accum 1 then 1 at accum 2 (none for NO_ACCUM2) on one Adam
     state, on TRAIN_B x
     TRAIN_T tokens (the MoE models MOE_TRAIN_BT; seamless with its frames).
     Raises unless every loss is finite and the steps launch no flash and no
-    KD kernel; then its float32 twin (``_train_twin``)."""
+    KD kernel; then its float32 twin (``_train_twin``).  Its second
+    accum-1 step and its accum-2 step go into ``timed``."""
     import dataclasses
 
     import torch
@@ -2246,6 +2285,11 @@ def _train_other(arch, smi):
         del batch
     launches = _launches_of_ours()
     finite = all(math.isfinite(r["loss"]) for r in runs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for r in runs[1:]:
+        _note(timed, f"lm_train {arch}", arch, cfg, "train",
+              {"seq_len": T, "global_batch": B}, r["seconds"] * 1e3, peak,
+              accum=r["accum"])
     line = {"phase": "lm_train", "card": smi,
             "config": f"{arch} full width, {_cut(full, TRAIN_MORE[arch])} "
             f"(d_model {cfg.d_model}, {_family(cfg)}, d_ff {cfg.d_ff}), "
@@ -2261,7 +2305,7 @@ def _train_other(arch, smi):
             "tokens_per_s_accum1_step2": runs[1]["tokens_per_s"],
             "s_per_step_accum2": runs[2]["seconds"] if len(runs) > 2
             else None,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_memory_gb": peak,
             "allocated_before_gb": allocated_before,
             "run_wall_s": time.perf_counter() - wall0,
             "losses_finite": finite, **launches}
@@ -2431,7 +2475,7 @@ def _kd_in_step(prof, V: int) -> dict:
     return kd_us
 
 
-def phase_lm_distill(smi):
+def phase_lm_distill(smi, timed):
     """The paper's FedSiKD step at LLM scale: teacher full qwen2.5-3b
     (bf16, random weights), students its ``as_student()`` (18 layers) in D
     = len(DISTILL_CLUSTERS) replicas, one replica's batch 1 x DISTILL_T
@@ -2446,7 +2490,8 @@ def phase_lm_distill(smi):
     recomputes it); the chunked and teacher-in-grad losses are within
     KD_TOL's bf16 rtol of the default one, and the profiled step's equal
     to the timed one's; every loss is finite; the replicas are equal after
-    ``sync``; and the teacher's bytes are unchanged."""
+    ``sync``; and the teacher's bytes are unchanged.  A step of each path
+    goes into ``timed``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -2516,6 +2561,12 @@ def phase_lm_distill(smi):
                        for k, v in flatten(teacher).items())
     peak = torch.cuda.max_memory_allocated() / 1e9
     by = {(r["path"], r["batch"], r["profiled"]): r for r in runs}
+    for path, i in (("default", 1), ("vocab_chunk", 2),
+                    ("teacher_in_grad", 2)):
+        _note(timed, f"lm_distill {LM_ARCH}", LM_ARCH, cfg, "fedsikd",
+              {"seq_len": DISTILL_T, "global_batch": D},
+              by[(path, i, False)]["seconds"] * 1e3, peak, replicas=D,
+              **_DISTILL_PATHS[path])
     ref = by[("default", 2, False)]["loss"]
     rtol = KD_TOL["bfloat16"][0]
     gaps = {p: abs(by[(p, 2, False)]["loss"] - ref) / abs(ref)
@@ -2558,8 +2609,14 @@ def phase_lm_distill(smi):
                                      for r in runs)}
     del students, opt_state, teacher, flat, makers
     torch.cuda.empty_cache()
-    more = {arch: _distill_other(arch, smi) for arch in DISTILL_MORE}
+    more = {arch: _distill_other(arch, smi, timed) for arch in DISTILL_MORE}
     return counts, kd_us, more
+
+
+# each distill path's keywords of the dry run's fedsikd step
+_DISTILL_PATHS = {"default": {},
+                  "vocab_chunk": {"fedsikd_vocab_chunk": DISTILL_CHUNK},
+                  "teacher_in_grad": {"fedsikd_teacher_in_grad": True}}
 
 
 def _distill_config(arch):
@@ -2580,7 +2637,7 @@ def _teacher_attention_launches(cfg) -> int:
     return layers * (len(DISTILL_CLUSTERS) if cfg.num_experts else 1)
 
 
-def _distill_other(arch, smi):
+def _distill_other(arch, smi, timed):
     """The FedSiKD step of one of the other families: the teacher ``arch``
     at full width with DISTILL_MORE's cuts (bf16, random weights, seed
     LM_SEED), students its ``as_student()`` in D = len(DISTILL_CLUSTERS)
@@ -2594,7 +2651,8 @@ def _distill_other(arch, smi):
     teacher forward, twice D times the teacher's attention layers in the
     teacher-in-grad step), the other paths' losses within KD_TOL's bf16
     rtol of the default one, finite losses, equal replicas after ``sync``
-    and the teacher's bytes unchanged."""
+    and the teacher's bytes unchanged.  A step of each path goes into
+    ``timed``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -2662,6 +2720,11 @@ def _distill_other(arch, smi):
     teacher_same = all(torch.equal(v.cpu(), teacher_host[k])
                        for k, v in flatten(teacher).items())
     peak = torch.cuda.max_memory_allocated() / 1e9
+    for r in [runs[1]] + runs[3:]:
+        _note(timed, f"lm_distill {arch}", arch, cfg, "fedsikd",
+              {"seq_len": DISTILL_T, "global_batch": D},
+              r["seconds"] * 1e3, peak, replicas=D,
+              **_DISTILL_PATHS[r["path"]])
     ref = runs[2]["loss"]
     rtol = KD_TOL["bfloat16"][0]
     gaps = {r["path"]: abs(r["loss"] - ref) / abs(ref) for r in runs[3:]}
@@ -2714,6 +2777,207 @@ def _distill_other(arch, smi):
     torch.cuda.empty_cache()
     return {"counts": counts, "kd_in_step": kd_us,
             "steps": len(runs)}
+
+
+# ----------------------------------------------------------- phase 4g
+# the dry runs' worker processes (the host has 8 cores; the dry runs use the
+# host alone, on fake tensors); a config deeper than DRYRUN_FULL_DEPTH runs
+# by the fit of analysis.extrapolate (its probes at 2-4 layers) but where
+# _by_fit says otherwise; and the bounds on what the dry run may say of the
+# timed steps
+DRYRUN_WORKERS = 8
+DRYRUN_FULL_DEPTH = 3
+MAX_SHARE = 1.05
+PEAK_UNDER = 0.8
+
+
+def _dry_init():
+    """A dry-run worker: no card of its own (its tensors are fake and
+    name the CPU; it opens no CUDA context), one thread."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+    torch.set_num_threads(1)
+
+
+def _dry_job(job):
+    """One dry run in a worker: ``dryrun.lower_one`` at full depth, or
+    ``analysis.extrapolate`` from its probes when ``job["fit"]``."""
+    from repro_torch.launch import analysis, dryrun
+    t0 = time.perf_counter()
+    if job["fit"]:
+        f = analysis.extrapolate(job["arch"], job["shape"], base=job["cfg"],
+                                 device="cpu", **job["kw"])
+        out = {"flops": f["flops_per_device"],
+               "bytes": f["hbm_bytes_per_device"], "peak": f["peak_bytes"],
+               "kernels": None}
+    else:
+        r = dryrun.lower_one(job["arch"], job["shape"], cfg=job["cfg"],
+                             device="cpu", verbose=False, **job["kw"])
+        mem = r["memory_analysis"]
+        out = {"flops": r["roofline"]["flops_per_device"],
+               "bytes": r["roofline"]["hbm_bytes_per_device"],
+               "peak": (mem["argument_size_in_bytes"]
+                        + mem["temp_size_in_bytes"]),
+               "kernels": r["kernels"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _by_fit(cfg, kind: str, timed: bool, accum: int = 1) -> bool:
+    """Whether a dry run takes the probes' fit.  Not for a shallow config,
+    nor a timed serving step (a forward at full depth is quick), nor the
+    fedsikd step of a hybrid or an encoder-decoder (no fit takes two layer
+    stacks), nor a timed hybrid's accum-1 train step: its remat holds a
+    whole group of layers, so its peak (its run's largest, above the
+    accum-2 step's) grows with the group's size, which the probes' groups
+    of 2 and 3 do not show.  An untimed hybrid train step (part a) takes
+    the fit, and its peak is the probes'."""
+    if cfg.num_layers <= DRYRUN_FULL_DEPTH:
+        return False
+    if timed and kind in ("prefill", "decode"):
+        return False
+    if kind == "fedsikd" and cfg.arch_type in ("hybrid", "audio"):
+        return False
+    return not (timed and kind == "train" and cfg.arch_type == "hybrid"
+                and accum == 1)
+
+
+def _dry_cost(job) -> float:
+    """A rough order of the jobs, longest first: the trained steps at full
+    depth, the long prefills' fits, the trained steps' fits."""
+    kind, spec = job["kind"], job["spec"]
+    trains = kind in ("train", "fedsikd")
+    if not job["fit"]:
+        depth = job["cfg"].num_layers + job["cfg"].num_encoder_layers
+        return depth * (3 if trains else 1)
+    if kind == "prefill" and spec["seq_len"] >= 16384:
+        return 120
+    return 60 if trains else 10
+
+
+def _dry_submit(pool, jobs):
+    """``jobs`` into ``pool``, the longest first; returns [(job, future)] in
+    the jobs' order."""
+    futures = {}
+    for i in sorted(range(len(jobs)), key=lambda i: -_dry_cost(jobs[i])):
+        futures[i] = pool.submit(_dry_job, {k: jobs[i][k] for k in (
+            "arch", "shape", "cfg", "fit", "kw")})
+    return [(jobs[i], futures[i]) for i in range(len(jobs))]
+
+
+def _untimed_jobs():
+    """Part (a)'s jobs: every ``ARCH_ID`` x ``INPUT_SHAPES`` entry that JAX
+    does not skip (the train_4k steps at accum 1, as JAX's analysis probes
+    take them), and the fedsikd step of qwen2.5-3b at train_4k."""
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    jobs = []
+    for arch in ARCH_IDS:
+        for shape, spec in INPUT_SHAPES.items():
+            if dryrun.shape_skip_reason(arch, shape):
+                continue
+            cfg = dryrun.arch_config(arch, shape)
+            jobs.append({"part": "a", "arch": arch, "shape": shape,
+                         "spec": spec, "kind": spec["kind"], "cfg": cfg,
+                         "fit": _by_fit(cfg, spec["kind"], False),
+                         "kw": {"accum": 1}})
+    jobs.append({"part": "a", "arch": LM_ARCH, "shape": "train_4k",
+                 "spec": INPUT_SHAPES["train_4k"], "kind": "fedsikd",
+                 "cfg": dryrun.arch_config(LM_ARCH, "train_4k"), "fit": True,
+                 "kw": {"step_kind": "fedsikd"}})
+    return jobs
+
+
+def phase_dryrun(smi, timed):
+    """The dry run (``repro_torch.launch``) beside the card, in
+    DRYRUN_WORKERS processes on the host.  (a) Every ``ARCH_ID`` x
+    ``INPUT_SHAPES`` entry and the fedsikd step of qwen2.5-3b at train_4k
+    (``_untimed_jobs``), at full width and full depth (by the fit of
+    ``analysis.extrapolate`` where ``_by_fit`` says): FLOPs, bytes, peak GB,
+    whether it fits the card, the dominant term and the bound ms.  (b) Each
+    step ``lm_serve``, ``lm_train`` and ``lm_distill`` timed, in its config
+    (its cuts), batch, accum and loss path: the count beside the measured
+    ms and peak, the step's MFU (model FLOPs / time / the dtype's peak) and
+    roofline share (the larger of compute and memory time / time).
+    Raises where a share or MFU reads over MAX_SHARE, a run's predicted
+    peak (the most of its steps) is under PEAK_UNDER of its measured one,
+    or a run's step does not fit the card by the count."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    import torch
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    card = torch.cuda.get_device_properties(0).total_memory
+    for arch in ARCH_IDS:
+        for shape in INPUT_SHAPES:
+            reason = dryrun.shape_skip_reason(arch, shape)
+            if reason:
+                emit({"phase": "dryrun", "part": "a", "arch": arch,
+                      "shape": shape, "skipped": reason})
+    timed_jobs = [{"part": "b", "arch": t["arch"], "shape": t["spec"],
+                   "spec": t["spec"], "kind": t["kind"], "cfg": t["cfg"],
+                   "fit": _by_fit(t["cfg"], t["kind"], True,
+                                  t["kw"].get("accum", 1)), "timed": t,
+                   "kw": {"step_kind": t["kind"], **t["kw"]}}
+                  for t in timed]
+    with cf.ProcessPoolExecutor(DRYRUN_WORKERS,
+                                mp_context=mp.get_context("spawn"),
+                                initializer=_dry_init) as pool:
+        pairs = _dry_submit(pool, _untimed_jobs() + timed_jobs)
+        results = [f.result() for _, f in pairs]
+
+    errors, groups = [], {}
+    for (job, _), r in zip(pairs, results):
+        cfg = job["cfg"]
+        roof = dryrun.rl.Roofline(r["flops"], r["bytes"], 0.0, {},
+                                  PEAK_FLOPS[cfg.dtype])
+        bound_s = max(roof.compute_s, roof.memory_s)
+        line = {"phase": "dryrun", "part": job["part"], "arch": job["arch"],
+                "shape": job["shape"], "step": job["kind"],
+                "layers": cfg.num_layers, "flops": r["flops"],
+                "bytes": r["bytes"], "peak_gb": r["peak"] / 1e9,
+                "fits": r["peak"] <= card, "dominant": roof.dominant,
+                "bound_ms": bound_s * 1e3,
+                "model_flops": dryrun.model_flops(cfg, job["kind"],
+                                                  job["spec"]),
+                "method": "fit of 2-4-layer probes" if job["fit"]
+                else "full depth", "dryrun_s": r["seconds"],
+                "kernels": r["kernels"], "card": smi}
+        if job["part"] == "b":
+            t = job["timed"]
+            sec = t["ms"] / 1e3
+            line.update({"kw": t["kw"], "measured_ms": t["ms"],
+                         "measured_peak_gb": t["peak_gb"],
+                         "mfu": line["model_flops"] / sec
+                         / PEAK_FLOPS[cfg.dtype],
+                         "roofline_share": bound_s / sec})
+            g = groups.setdefault(t["group"], {"measured": t["peak_gb"],
+                                               "predicted": 0.0})
+            g["predicted"] = max(g["predicted"], line["peak_gb"])
+            if max(line["mfu"], line["roofline_share"]) > MAX_SHARE:
+                errors.append(f"{t['group']} {job['kind']}: mfu "
+                              f"{line['mfu']:.3f}, roofline share "
+                              f"{line['roofline_share']:.3f}")
+            if not line["fits"]:
+                errors.append(f"{t['group']} {job['kind']}: the count says "
+                              f"{line['peak_gb']:.1f} GB, over the card's "
+                              f"{card / 1e9:.1f}")
+        emit(line)
+    for name, g in groups.items():
+        g["ratio"] = g["predicted"] / g["measured"]
+        if g["ratio"] < PEAK_UNDER:
+            errors.append(f"{name}: predicted peak {g['predicted']:.2f} GB, "
+                          f"measured {g['measured']:.2f} GB")
+    emit({"phase": "dryrun", "card": smi, "records": len(pairs),
+          "peaks_predicted_vs_measured_gb": groups,
+          "workers": DRYRUN_WORKERS, "phase_s": time.perf_counter() - t0,
+          "dryrun_cpu_s": sum(r["seconds"] for r in results)})
+    if errors:
+        raise RuntimeError(f"dryrun: {errors}")
 
 
 # ----------------------------------------------------------- phase 4f
@@ -3347,9 +3611,11 @@ def main() -> int:
     baseline_merges = phase_baselines_path(ds, loop_h, packed_h)
     runtime_counts, runtime_h = phase_runtime_path(ds, loop_h, packed_h)
     scale_counts = phase_scale_path(ds, runtime_h)
-    lm_counts, lm_variants, serve_more = phase_lm_serve(smi)
-    phase_lm_train(smi)
-    distill_counts, distill_kd, distill_more = phase_lm_distill(smi)
+    timed = []
+    lm_counts, lm_variants, serve_more = phase_lm_serve(smi, timed)
+    phase_lm_train(smi, timed)
+    distill_counts, distill_kd, distill_more = phase_lm_distill(smi, timed)
+    phase_dryrun(smi, timed)
     phase_examples(smi)
     for name, c in (("kd_softmax_kl_fwd", kd_counts),
                     ("kd_softmax_kl_bwd", kd_counts),

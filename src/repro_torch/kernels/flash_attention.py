@@ -27,7 +27,10 @@ Dispatch of a CUDA tensor, by dtype and T only (``variant``):
   the CUDA cores.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor goes to its
-kernel, or the wrapper raises (there is no fallback).  The kernels have no
+kernel, or the wrapper raises (there is no fallback).  A fake tensor
+(``FakeTensorMode``, on either device) gets an output of the kernel's
+shape and dtype and its work added to ``launch/roofline.py``'s count, and
+launches nothing.  The kernels have no
 backward, and need none: training takes the JAX package's plain
 attention (``models.layers.attention_fwd(..., train=True)``), as the
 reference trains through jnp and never through its Pallas kernel.  A
@@ -44,6 +47,7 @@ bytes in a decode step (8.5 MB of cache at S = 4128: 2.5 us).
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -223,6 +227,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     does a call off the CPU that would need a gradient (``refuse_grad``)."""
     _check(q, k, v, window)
     refuse_grad(q, k, v)
+    if isinstance(q, FakeTensor):
+        return _fake_call(q, k, causal, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -266,6 +272,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     flash_attention.launches += 1
     flash_attention.variant_launches[kind] += 1
     return out
+
+
+def _fake_call(q, k, causal, window):
+    """A call on fake tensors (a counted dry run, ``launch/roofline.py``):
+    the kernels' output, shape and dtype, and their work, 4 B H hd a
+    visible (query, key) pair, into the active count; no launch."""
+    from repro_torch.launch import roofline
+    B, T, H, hd = q.shape
+    roofline.kernel("flash_attention", 4 * B * H * hd * roofline.visible_pairs(
+        T, k.shape[1], causal, window))
+    return q.new_empty((B, T, H, hd))
 
 
 def _launch_v1(lib, q, k, v, out, causal, window, stream) -> int:

@@ -30,9 +30,11 @@ side derives the thread counts, shared memory and grids from it:
   row over several SMs waits for a caller that gives such shapes.
 
 Dispatch: a tensor on the CPU goes to the plain version below; a CUDA
-tensor goes to the kernel, or the wrapper raises.  ``launches`` on each
-wrapper counts kernel launches (never plain calls), ``variant_launches``
-the same launches by regime.
+tensor goes to the kernel, or the wrapper raises; a fake tensor
+(``FakeTensorMode``) gets outputs of the kernel's shapes and dtypes and
+one call in ``launch/roofline.py``'s count, and launches nothing.
+``launches`` on each wrapper counts kernel launches (never plain calls),
+``variant_launches`` the same launches by regime.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import functools
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -132,6 +135,14 @@ def kd_loss_bwd_plain(s, t, y, stats, g, *, tau: float, alpha: float):
 
 
 # ------------------------------------------------------------------ wrappers
+def _count_fake(name):
+    """A call on fake tensors (a counted dry run, ``launch/roofline.py``):
+    one call of ``name`` into the active count, with no FLOPs (the
+    kernels compute no product; the plain version's count is 0 too)."""
+    from repro_torch.launch import roofline
+    roofline.kernel(name)
+
+
 def _check(s, t, y, what):
     if s.dim() != 2 or s.shape != t.shape:
         raise ValueError(f"{what}: student/teacher logits must both be (T, V), "
@@ -166,6 +177,10 @@ def kd_loss_fwd(s, t, y, *, tau: float = 2.0, alpha: float = 0.5):
     """Per-token fused distillation loss: ``(T, V), (T, V), (T,) ->
     ((T,) f32 loss, (T, 3) f32 stats)``.  Labels < 0 give zero loss."""
     _check(s, t, y, "kd_loss_fwd")
+    if isinstance(s, FakeTensor):
+        _count_fake("kd_softmax_kl_fwd")
+        return (s.new_empty(s.shape[0], dtype=torch.float32),
+                s.new_empty((s.shape[0], 3), dtype=torch.float32))
     if s.device.type == "cpu":
         return kd_loss_fwd_plain(s, t, y, tau=tau, alpha=alpha)
     code = _check_card("kd_loss_fwd", s, tau, s=s, t=t)
@@ -195,6 +210,9 @@ def kd_loss_bwd(s, t, y, stats, g, *, tau: float = 2.0, alpha: float = 0.5):
     if stats.shape != (T, 3) or g.shape != (T,):
         raise ValueError(f"kd_loss_bwd: stats {tuple(stats.shape)} / g "
                          f"{tuple(g.shape)} do not match T={T}")
+    if isinstance(s, FakeTensor):
+        _count_fake("kd_softmax_kl_bwd")
+        return s.new_empty(s.shape)
     if s.device.type == "cpu":
         return kd_loss_bwd_plain(s, t, y, stats, g, tau=tau, alpha=alpha)
     if stats.dtype != torch.float32 or g.dtype != torch.float32:

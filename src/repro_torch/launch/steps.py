@@ -46,12 +46,19 @@ def _loss_mod(cfg: ModelConfig):
     return ed if cfg.arch_type == "audio" else tf
 
 
-def make_optimizer(cfg: ModelConfig, *, lr: float = 1e-4):
-    """AdamW with bfloat16 moments above 8e9 parameters (read from
-    ``cfg.param_count()``), float32 below.  Its ``init`` takes the nested
-    LM params (or a flat dict) and returns flat moments."""
-    big = cfg.param_count() > 8_000_000_000
-    base = adamw(lr, state_dtype=torch.bfloat16 if big else torch.float32)
+def moment_dtype(cfg: ModelConfig) -> torch.dtype:
+    """bfloat16 Adam moments above 8e9 parameters (``cfg.param_count()``),
+    float32 below."""
+    return (torch.bfloat16 if cfg.param_count() > 8_000_000_000
+            else torch.float32)
+
+
+def make_optimizer(cfg: ModelConfig, *, lr: float = 1e-4, state_dtype=None):
+    """AdamW with ``moment_dtype(cfg)`` moments (or ``state_dtype``: the
+    dry run's reduced-depth probes keep their full model's).  Its ``init``
+    takes the nested LM params (or a flat dict) and returns flat
+    moments."""
+    base = adamw(lr, state_dtype=state_dtype or moment_dtype(cfg))
     return dataclasses.replace(base,
                                init=lambda params: base.init(flatten(params)))
 
@@ -62,14 +69,16 @@ def _grad_aliases(flat: dict) -> dict:
     return {k: v.detach().requires_grad_() for k, v in flat.items()}
 
 
-def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, accum: int = 1):
+def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, accum: int = 1,
+                    state_dtype=None):
     """``(train_step, opt)``.  ``train_step(params, opt_state, batch) ->
     (params, opt_state, loss)`` with ``opt_state = opt.init(params)``;
     params, moments and count are updated in place.  With ``accum > 1`` the
     batch is cut into ``accum`` micro-batches along its first axis, their
     gradients summed in float32, divided by ``accum`` and cast to bfloat16
-    when ``cfg.dtype`` is, and the loss is the mean of the micro losses."""
-    opt = make_optimizer(cfg, lr=lr)
+    when ``cfg.dtype`` is, and the loss is the mean of the micro losses.
+    ``state_dtype`` goes to ``make_optimizer``."""
+    opt = make_optimizer(cfg, lr=lr, state_dtype=state_dtype)
     mod = _loss_mod(cfg)
     grad_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -242,7 +251,7 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
                               lr: float = 1e-4, kd_alpha: float = 0.5,
                               kd_tau: float = 2.0,
                               teacher_in_grad: bool = False,
-                              vocab_chunk: int = 0):
+                              vocab_chunk: int = 0, state_dtype=None):
     """``(distill_step, sync, init_students, opt, s_cfg)``.
 
     Students are one nest of params with a leading D axis on every leaf
@@ -281,7 +290,7 @@ def make_fedsikd_distill_step(cfg: ModelConfig, cluster_of, *,
     mod = _loss_mod(cfg)
     init = ed.init_encdec if cfg.arch_type == "audio" else tf.init_lm
     s_cfg = cfg.as_student()
-    base = make_optimizer(s_cfg, lr=lr)
+    base = make_optimizer(s_cfg, lr=lr, state_dtype=state_dtype)
     A_intra, A_global = (a.numpy() for a in averaging_matrices(cluster_of))
     D = len(np.asarray(cluster_of))
     P = cfg.prefix_len

@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import roofline
 from repro_torch.models import layers as ly
 from repro_torch.models.transformer import _layer, _logits
 
@@ -61,7 +62,9 @@ def _cross_attention(p, cfg: ModelConfig, x, memory, positions_q):
     k = (memory @ p["wk"]).reshape(B, S, KVH, hd)
     v = (memory @ p["wv"]).reshape(B, S, KVH, hd)
     mask = torch.ones((1, 1, 1, T, S), dtype=torch.bool, device=x.device)
-    out = ly._sdpa(q, k, v, mask, scale=hd ** -0.5)
+    with roofline.attention(B, H, 2 * hd, T, S, causal=False,
+                            inputs=(q, k, v)):
+        out = ly._sdpa(q, k, v, mask, scale=hd ** -0.5)
     return out.reshape(B, T, -1) @ p["wo"]
 
 
@@ -70,7 +73,9 @@ def _enc_block(x, lp, cfg: ModelConfig, positions):
     h = ly.rmsnorm(lp["ln1"], x, cfg.rms_eps)
     q, k, v = ly._qkv(lp["attn"], cfg, h, positions)
     mask = torch.ones((1, 1, 1, F_, F_), dtype=torch.bool, device=x.device)
-    a = ly._sdpa(q, k, v, mask, scale=cfg.hd ** -0.5)       # bidirectional
+    with roofline.attention(B, cfg.num_heads, 2 * cfg.hd, F_, F_,
+                            causal=False, inputs=(q, k, v)):
+        a = ly._sdpa(q, k, v, mask, scale=cfg.hd ** -0.5)   # bidirectional
     x = x + a.reshape(B, F_, -1) @ lp["attn"]["wo"]
     return x + ly.mlp_fwd(lp["mlp"], cfg, ly.rmsnorm(lp["ln2"], x,
                                                       cfg.rms_eps))

@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 # the JAX module's mask helper, defined beside the plain flash attention
 from repro_torch.kernels.flash_attention import NEG, causal_mask
+from repro_torch.launch import roofline
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -154,20 +155,21 @@ def _block_step(m, l, acc, qblk, kblk, vblk, row0: int, col0: int,
     ``m``, sum ``l`` and float32 accumulator ``acc`` of one query block
     (B, KVH, G, bq[, hd]) after the keys [col0, col0 + bk); the query
     block's first row sits at key position ``row0``."""
-    s = torch.einsum("bqkgh,bskh->bkgqs", qblk, kblk.float()) * scale
-    if causal:
-        rows = row0 + torch.arange(s.shape[3], device=s.device)[:, None]
-        cols = col0 + torch.arange(s.shape[4], device=s.device)[None, :]
-        mask = cols <= rows
-        if window:
-            mask &= cols > rows - window
-        s = s.masked_fill(~mask, NEG)
-    m_new = torch.maximum(m, s.amax(-1))
-    r = torch.exp(m - m_new)
-    p = torch.exp(s - m_new[..., None])
-    l_new = l * r + p.sum(-1)
-    acc_new = acc * r[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p,
-                                                vblk.float())
+    with roofline.attention_step():
+        s = torch.einsum("bqkgh,bskh->bkgqs", qblk, kblk.float()) * scale
+        if causal:
+            rows = row0 + torch.arange(s.shape[3], device=s.device)[:, None]
+            cols = col0 + torch.arange(s.shape[4], device=s.device)[None, :]
+            mask = cols <= rows
+            if window:
+                mask &= cols > rows - window
+            s = s.masked_fill(~mask, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        r = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * r + p.sum(-1)
+        acc_new = acc * r[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p,
+                                                    vblk.float())
     return m_new, l_new, acc_new
 
 
@@ -221,17 +223,22 @@ def attention_fwd(p, cfg: ModelConfig, x, positions, *, window: int = 0,
     the caller that differentiates: ``lm_loss`` and the distillation
     losses) takes the JAX function's own jnp formulations, chosen by
     ``cfg.attn_block`` as JAX chooses: ``_sdpa`` for T < 2 * attn_block,
-    ``sdpa_blocked`` at or above it."""
+    ``sdpa_blocked`` at or above it (each marked for a counted dry run,
+    ``launch/roofline.attention``)."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     if not train:
         out = ops.flash_attention(q, k, v, causal=True, window=window)
     elif cfg.attn_block and T >= 2 * cfg.attn_block:
-        out = sdpa_blocked(q, k, v, scale=cfg.hd ** -0.5, causal=True,
-                           window=window, block=cfg.attn_block)
+        with roofline.attention(B, cfg.num_heads, 2 * cfg.hd, T, T,
+                                window=window, inputs=(q, k, v)):
+            out = sdpa_blocked(q, k, v, scale=cfg.hd ** -0.5, causal=True,
+                               window=window, block=cfg.attn_block)
     else:
         mask = causal_mask(T, T, window=window, device=x.device)
-        out = _sdpa(q, k, v, mask, scale=cfg.hd ** -0.5)
+        with roofline.attention(B, cfg.num_heads, 2 * cfg.hd, T, T,
+                                window=window, inputs=(q, k, v)):
+            out = _sdpa(q, k, v, mask, scale=cfg.hd ** -0.5)
     return out.reshape(B, T, -1) @ p["wo"], (k, v)
 
 
@@ -311,20 +318,21 @@ def _mla_block_step(m, l, acc, qn, qr, c_blk, kr_blk, k_b, v_b, row0: int,
     """One key block of ``mla_sdpa_blocked``: keys and values expanded from
     the block's latent, then the online-softmax update of (m, l, acc),
     (B, H, bq[, vd]) in float32."""
-    k_blk = torch.einsum("bsr,rhc->bshc", c_blk, k_b)
-    v_blk = torch.einsum("bsr,rhv->bshv", c_blk, v_b)
-    s = (torch.einsum("bqhc,bshc->bhqs", qn, k_blk.float())
-         + torch.einsum("bqhr,bsr->bhqs", qr, kr_blk.float())) * scale
-    if causal:
-        rows = row0 + torch.arange(s.shape[2], device=s.device)[:, None]
-        cols = col0 + torch.arange(s.shape[3], device=s.device)[None, :]
-        s = s.masked_fill(~(cols <= rows), NEG)
-    m_new = torch.maximum(m, s.amax(-1))
-    sc = torch.exp(m - m_new)
-    pw = torch.exp(s - m_new[..., None])
-    l_new = l * sc + pw.sum(-1)
-    acc_new = acc * sc[..., None] + torch.einsum("bhqs,bshv->bhqv", pw,
-                                                 v_blk.float())
+    with roofline.attention_step():
+        k_blk = torch.einsum("bsr,rhc->bshc", c_blk, k_b)
+        v_blk = torch.einsum("bsr,rhv->bshv", c_blk, v_b)
+        s = (torch.einsum("bqhc,bshc->bhqs", qn, k_blk.float())
+             + torch.einsum("bqhr,bsr->bhqs", qr, kr_blk.float())) * scale
+        if causal:
+            rows = row0 + torch.arange(s.shape[2], device=s.device)[:, None]
+            cols = col0 + torch.arange(s.shape[3], device=s.device)[None, :]
+            s = s.masked_fill(~(cols <= rows), NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        sc = torch.exp(m - m_new)
+        pw = torch.exp(s - m_new[..., None])
+        l_new = l * sc + pw.sum(-1)
+        acc_new = acc * sc[..., None] + torch.einsum("bhqs,bshv->bhqv", pw,
+                                                     v_blk.float())
     return m_new, l_new, acc_new
 
 
@@ -374,27 +382,36 @@ def mla_fwd(p, cfg: ModelConfig, x, positions):
     From ``T >= 8 * cfg.attn_block`` on, the flash-MLA path
     (``mla_sdpa_blocked``), as in JAX: keys and values expand from the
     latent per key block, never materialising the (T, S) scores or the
-    whole (B, S, H, nope) keys."""
+    whole (B, S, H, nope) keys.  A counted dry run
+    (``launch/roofline.attention``) counts the blocked path's expansion of
+    the keys and values once, as the other path computes it."""
     B, T, _ = x.shape
     H, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     scale = (nope + cfg.qk_rope_dim) ** -0.5
+    width = nope + cfg.qk_rope_dim + vd
     if cfg.attn_block and T >= 8 * cfg.attn_block:
-        out = mla_sdpa_blocked(
-            q_nope, q_rope, c_kv, k_rope, p["k_b"].reshape(r, H, nope),
-            p["v_b"].reshape(r, H, vd), scale=scale,
-            block=cfg.attn_block).reshape(B, T, H * vd)
+        with roofline.attention(B, H, width, T, T,
+                                extra=2 * B * T * r * H * (nope + vd),
+                                inputs=(q_nope, q_rope, c_kv, k_rope,
+                                        p["k_b"], p["v_b"])):
+            out = mla_sdpa_blocked(
+                q_nope, q_rope, c_kv, k_rope, p["k_b"].reshape(r, H, nope),
+                p["v_b"].reshape(r, H, vd), scale=scale,
+                block=cfg.attn_block).reshape(B, T, H * vd)
         return out @ p["wo"], (c_kv, k_rope)
     k_nope = (c_kv @ p["k_b"]).reshape(B, T, H, nope)
     v = (c_kv @ p["v_b"]).reshape(B, T, H, vd)
-    scores = (torch.einsum("bthc,bshc->bhts", q_nope, k_nope)
-              + torch.einsum("bthc,bsc->bhts", q_rope, k_rope)).float()
-    mask = causal_mask(T, T, device=x.device)
-    w = torch.softmax((scores * scale).masked_fill(~mask, NEG),
-                      dim=-1).to(x.dtype)
-    out = torch.einsum("bhts,bshv->bthv", w, v).reshape(B, T, H * vd)
+    with roofline.attention(B, H, width, T, T,
+                            inputs=(q_nope, q_rope, k_nope, k_rope, v)):
+        scores = (torch.einsum("bthc,bshc->bhts", q_nope, k_nope)
+                  + torch.einsum("bthc,bsc->bhts", q_rope, k_rope)).float()
+        mask = causal_mask(T, T, device=x.device)
+        w = torch.softmax((scores * scale).masked_fill(~mask, NEG),
+                          dim=-1).to(x.dtype)
+        out = torch.einsum("bhts,bshv->bthv", w, v).reshape(B, T, H * vd)
     return out @ p["wo"], (c_kv, k_rope)
 
 
@@ -424,11 +441,13 @@ def mla_decode(p, cfg: ModelConfig, x, cache_c, cache_kr, pos: int):
     # absorb W_uk into q: q_lat (B, 1, H, r)
     q_lat = torch.einsum("bthc,rhc->bthr", q_nope,
                          p["k_b"].reshape(r, H, nope))
-    scores = (torch.einsum("bthr,bsr->bhts", q_lat, c_vis)
-              + torch.einsum("bthc,bsc->bhts", q_rope, kr_vis)).float()
     scale = (nope + cfg.qk_rope_dim) ** -0.5
-    w = torch.softmax(scores * scale, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhts,bsr->bthr", w, c_vis)               # (B,1,H,r)
+    with roofline.attention(B, H, 2 * r + cfg.qk_rope_dim, 1, pos + 1,
+                            inputs=(q_lat, q_rope, c_vis, kr_vis)):
+        scores = (torch.einsum("bthr,bsr->bhts", q_lat, c_vis)
+                  + torch.einsum("bthc,bsc->bhts", q_rope, kr_vis)).float()
+        w = torch.softmax(scores * scale, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhts,bsr->bthr", w, c_vis)           # (B,1,H,r)
     out = torch.einsum("bthr,rhv->bthv", o_lat,
                        p["v_b"].reshape(r, H, vd)).reshape(B, 1, H * vd)
     return out @ p["wo"], (cache_c, cache_kr)

@@ -50,6 +50,8 @@ def test_the_walk_sees_the_whole_port():
                    "models/layers.py", "models/transformer.py",
                    "models/chunked_scan.py", "models/ssm.py",
                    "models/rwkv.py", "models/encdec.py",
-                   "launch/steps.py", "kernels/flash_attention.py"):
+                   "launch/steps.py", "launch/inputs.py",
+                   "launch/roofline.py", "launch/dryrun.py",
+                   "launch/analysis.py", "kernels/flash_attention.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(names) >= 36
