@@ -14,6 +14,12 @@ on the full MNIST twin, 40 clients, 3 rounds) on the card on both engines
 one stacked program), then the paper's baselines on the same twin (loop
 FedAvg, FedProx and FL+HC, each merge one fused-merge launch, and packed
 FedAvg with all 40 clients as lanes, whose merge is a product), then the
+packed engine on a mesh of ranks (phase ``mesh_path``: packed FedSiKD and
+FedAvg through the client mesh of ``torch.distributed``, one NCCL rank a
+card, and on a one-card machine 2 gloo ranks sharing it, 20 slots each;
+each held to the one-process packed run: equal accuracy, losses within
+1e-6 relative, the same history and global model on every rank, exact KD
+and k-means launches a rank), then the
 paper's join-and-share path (phase ``runtime_path``: loop FedSiKD with
 DP-noised statistics, clients joining and leaving, warm re-clustering,
 stragglers merged late and a checkpoint every round, interrupted and
@@ -1031,7 +1037,272 @@ def phase_baselines_path(ds, fedsikd_loop_h, fedsikd_packed_h):
             raise RuntimeError(f"packed {alg} loss {packed['loss']} is more "
                                f"than {LOSS_RTOL_TO_LOOP} relative from the "
                                f"loop engine's {loop['loss']}")
-    return merges
+    return merges, hist
+
+
+# ----------------------------------------------------------- phase 4b2b
+# The packed engine on a mesh of ranks: one process a rank over
+# torch.distributed, each holding a contiguous block of the 40 slots.
+MESH_RUNS = (("fedsikd", dict(algorithm="fedsikd", engine="sharded",
+                              pack=PACKED_LANES, rounds=ROUNDS)),
+             ("fedavg", dict(algorithm="fedavg", engine="sharded",
+                             pack=PACKED_LANES, rounds=ROUNDS)))
+MESH_LOSS_RTOL = 1e-6
+MESH_TIMEOUT_S = 300
+
+
+def _gloo_takes_cuda(dev) -> None:
+    """Every collective the mesh uses, on CUDA tensors (raises if the
+    backend refuses one)."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(3, device=dev)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x)
+    dist.all_reduce(x)
+    dist.all_reduce(torch.ones(1, dtype=torch.int32, device=dev))
+    dist.all_reduce(torch.ones(1, dtype=torch.float64, device=dev),
+                    op=dist.ReduceOp.MAX)
+    dist.broadcast(x, src=0)
+    dist.broadcast_object_list([1], src=0)
+    torch.cuda.synchronize(dev)
+
+
+def _mesh_timing(mesh, n_local: int, dev) -> dict:
+    """ms of one teacher sync (the teacher CNN and its two Adam moments)
+    and one student mean on this rank's block of the 40 slots, through
+    the mesh and with every slot in one process."""
+    import numpy as np
+    import torch
+    from repro_torch import rng
+    from repro_torch.core import cluster_collectives as cc
+    from repro_torch.launch.shardings import rank_slots
+    from repro_torch.models.cnn import make_model
+    S = PACKED_LANES
+    mine = rank_slots(S, mesh)
+    out = {}
+    for name, student in (("teacher_sync", False), ("student_mean", True)):
+        init = make_model("mnist", student=student)[0]
+        p = [init(rng.fold_seed(0, i), dev) for i in range(S)]
+        full = {k: torch.stack([q[k] for q in p]) for k in p[0]}
+        if not student:              # params and two moments, as synced
+            full = {f"{m}{k}": v for m in ("p.", "mu.", "nu.")
+                    for k, v in full.items()}
+        block = {k: v[mine] for k, v in full.items()}
+        if student:
+            table = torch.full((S,), 1.0 / S, device=dev)
+            op = cc.packed_weighted_mean
+        else:
+            t = np.eye(S, dtype=np.float32)
+            for c in range(4):               # 4 clusters of 10 slots
+                t[c * 10:(c + 1) * 10, c * 10:(c + 1) * 10] = 0.1
+            table = torch.from_numpy(t).to(dev)
+            op = cc.packed_teacher_sync
+        out[f"{name}_ms"] = time_ms(lambda: op(block, table, mesh=mesh),
+                                    iters=10)
+        out[f"{name}_one_process_ms"] = time_ms(lambda: op(full, table),
+                                                iters=10)
+        out[f"{name}_floats_a_slot"] = sum(v[0].numel()
+                                           for v in full.values())
+    out["slots_held"] = n_local
+    return out
+
+
+def _mesh_rank(rank, world, backend, device_type, small, runs, store, out):
+    """One rank of a mesh world: joins the world over a ``FileStore``, runs
+    ``runs`` (``MESH_RUNS`` on the card) through ``run_federated`` on the
+    MNIST twin (``small``: the CPU's) with the launch counts zeroed just before
+    each, and saves each run's history, counts and a digest of its global
+    model after every round, and on the card the mesh operators' times.
+    ``device_type`` "cpu" rehearses the phase on the CPU."""
+    import datetime
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False   # as phase_setup sets
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(
+                                seconds=MESH_TIMEOUT_S))
+    try:
+        if backend == "gloo" and device_type == "cuda":
+            _gloo_takes_cuda(dev)
+        from repro_torch.data.synthetic import load_dataset
+        from repro_torch.fed import driver
+        from repro_torch.fed.rounds import FedConfig, run_federated
+        from repro_torch.kernels import kd_softmax_kl as kd
+        from repro_torch.kernels import kmeans_assign as km
+        from repro_torch.kernels import launch_counts, reset_launches
+        ds = load_dataset("mnist", small=small)
+        record = driver.RoundDriver._record
+        res, algs = {}, []
+        for name, kw in runs:
+            digests = []
+
+            def snapshot(self, history, rnd, digests=digests):
+                g = getattr(self.alg, "sp_global", None) \
+                    or self.alg.global_params
+                digests.append(hashlib.sha256(b"".join(
+                    g[k].detach().cpu().numpy().tobytes()
+                    for k in sorted(g))).hexdigest())
+                algs.append(self.alg)
+                return record(self, history, rnd)
+
+            driver.RoundDriver._record = snapshot
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                h = run_federated(ds, FedConfig(**kw), device=dev)
+                total = time.perf_counter() - t0
+                counts = launch_counts()
+            finally:
+                driver.RoundDriver._record = record
+            res[name] = {"history": h, "seconds_total": total,
+                         "launches": counts, "digests": digests,
+                         "kd_variants": {
+                             "fwd": dict(kd.kd_loss_fwd.variant_launches),
+                             "bwd": dict(kd.kd_loss_bwd.variant_launches)},
+                         "kmeans_variants": dict(
+                             km.kmeans_assign.variant_launches)}
+        alg = algs[-1]
+        res["timing"] = (_mesh_timing(alg.mesh, alg.n_local, dev)
+                         if device_type == "cuda" else None)
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_world(world, backend, device_type="cuda", small=False,
+                runs=MESH_RUNS) -> list:
+    """Spawn a world of ``world`` ranks of ``_mesh_rank``; returns each
+    rank's results.  A rank that fails raises here."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_mesh_rank, args=(world, backend, device_type,
+                                             small, runs, f"{tmp}/store",
+                                             tmp),
+                           nprocs=world, start_method="spawn")
+        return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def _hold_mesh(label, ranks, refs, want_kd, want_km, runs=MESH_RUNS) -> dict:
+    """Hold a mesh world's runs to the one-process packed runs ``refs``:
+    equal accuracy, losses within ``MESH_LOSS_RTOL``, the same history and
+    global model on every rank, exact KD and k-means launches a rank."""
+    world = len(ranks)
+    summary = {}
+    for name, _ in runs:
+        h, ref = ranks[0][name]["history"], refs[name]
+        keys = [k for k in ("loss", "teacher_loss", "student_loss",
+                            "train_loss") if k in ref]
+        gaps = {k: max(abs(a - b) / abs(b) for a, b in zip(h[k], ref[k]))
+                for k in keys}
+        bit_equal = h["acc"] == ref["acc"] and all(h[k] == ref[k]
+                                                    for k in keys)
+        per_rank = [{"kd_fwd": r[name]["launches"]["kd_softmax_kl_fwd"],
+                     "kd_bwd": r[name]["launches"]["kd_softmax_kl_bwd"],
+                     "kd_variants": r[name]["kd_variants"],
+                     "kmeans_assign": r[name]["launches"]["kmeans_assign"],
+                     "kmeans_variants": r[name]["kmeans_variants"],
+                     "fused_merge": r[name]["launches"]["fused_merge"]}
+                    for r in ranks]
+        summary[name] = {"acc": h["acc"], "loss": h["loss"],
+                         **{k: h[k] for k in keys},
+                         "reference_acc": ref["acc"],
+                         "round_seconds": h["round_seconds"],
+                         "reference_round_seconds": ref["round_seconds"],
+                         "seconds_total": [r[name]["seconds_total"]
+                                           for r in ranks],
+                         "loss_rel_gap": gaps, "bit_equal": bit_equal,
+                         "launches_per_rank": per_rank}
+        if h["acc"] != ref["acc"]:
+            raise RuntimeError(f"{label} {name}: accuracy {h['acc']} is not "
+                               f"the one-process run's {ref['acc']}")
+        for k, g in gaps.items():
+            if g > MESH_LOSS_RTOL:
+                raise RuntimeError(f"{label} {name}: {k} {h[k]} is more "
+                                   f"than {MESH_LOSS_RTOL} relative from "
+                                   f"the one-process run's {ref[k]}")
+        for rank in range(1, world):
+            other = ranks[rank][name]
+            if other["history"] != h or \
+                    other["digests"] != ranks[0][name]["digests"]:
+                raise RuntimeError(f"{label} {name}: rank {rank}'s history "
+                                   "or global model differs from rank 0's")
+        kd_want = want_kd if name == "fedsikd" else 0
+        rows = {"rows": kd_want, "stream": 0}
+        for rank, c in enumerate(per_rank):
+            km_want = want_km if name == "fedsikd" and rank == 0 else 0
+            if (c["kd_fwd"], c["kd_bwd"]) != (kd_want, kd_want) or \
+                    c["kd_variants"] != {"fwd": rows, "bwd": rows}:
+                raise RuntimeError(f"{label} {name} rank {rank}: expected "
+                                   f"{kd_want} KD launches each way, all "
+                                   f"'rows', counted {c}")
+            if c["kmeans_assign"] != km_want:
+                raise RuntimeError(f"{label} {name} rank {rank}: expected "
+                                   f"{km_want} kmeans_assign launches, "
+                                   f"counted {c['kmeans_assign']}")
+            if c["fused_merge"]:
+                raise RuntimeError(f"{label} {name} rank {rank}: a "
+                                   "synchronous packed round launched a "
+                                   "fused merge")
+    return summary
+
+
+def phase_mesh_path(ds, packed_h, fedavg_packed_h, smi):
+    """The packed engine on a mesh of ranks: one NCCL rank a card runs the
+    packed path's FedSiKD configuration and packed FedAvg through the
+    mesh code, held to the one-process runs (``packed_path`` and
+    ``baselines_path``); then, on a one-card machine, a world of 2 gloo
+    ranks sharing the card, held the same way.  Returns rank 0's launch
+    counts of the NCCL world's FedSiKD run."""
+    import torch
+    from repro_torch.data.pipeline import make_client_shards
+    from repro_torch.fed.rounds import FedConfig
+    from repro_torch.fed.sharded import client_step_counts
+    cfg = FedConfig(**dict(MESH_RUNS)["fedsikd"])
+    shards = make_client_shards(ds, cfg.num_clients, cfg.alpha, seed=cfg.seed)
+    budgets = client_step_counts(shards, cfg.batch_size, cfg.local_epochs)
+    want_kd = ROUNDS * int(budgets.max())
+    want_km = expected_kmeans_launches(cfg, cfg.num_clients)
+    refs = {"fedsikd": packed_h, "fedavg": fedavg_packed_h}
+    worlds = [(torch.cuda.device_count(), "nccl")]
+    if torch.cuda.device_count() == 1:
+        worlds.append((2, "gloo"))
+    first = None
+    for world, backend in worlds:
+        label = f"{backend} world of {world}"
+        t0 = time.perf_counter()
+        try:
+            ranks = _mesh_world(world, backend)
+        except Exception as e:
+            if backend == "gloo" and "_gloo_takes_cuda" in str(e):
+                emit({"phase": "mesh_path", "world": world,
+                      "backend": backend, "card": smi,
+                      "left_out": "gloo refused CUDA tensors: "
+                      + str(e)[-500:]})
+                continue
+            raise
+        emit({"phase": "mesh_path", "world": world, "backend": backend,
+              "card": smi, "config": "fedsikd and fedavg sharded pack=40 "
+              f"mnist 40 clients alpha=0.5 batch=64 rounds={ROUNDS}, "
+              f"{PACKED_LANES // world} slots a rank",
+              "seconds": time.perf_counter() - t0,
+              "runs": _hold_mesh(label, ranks, refs, want_kd, want_km),
+              "timing_per_rank": [r["timing"] for r in ranks]})
+        if first is None:
+            first = ranks[0]["fedsikd"]["launches"]
+    return first
 
 
 # ----------------------------------------------------------- phase 4b3
@@ -3608,7 +3879,9 @@ def main() -> int:
     kd_counts = phase_fused_distill(ds)
     merge_counts, loop_h = phase_main_path(ds)
     packed_counts, packed_h = phase_packed_path(ds, loop_h)
-    baseline_merges = phase_baselines_path(ds, loop_h, packed_h)
+    baseline_merges, baseline_h = phase_baselines_path(ds, loop_h, packed_h)
+    mesh_counts = phase_mesh_path(ds, packed_h, baseline_h["fedavg packed"],
+                                  smi)
     runtime_counts, runtime_h = phase_runtime_path(ds, loop_h, packed_h)
     scale_counts = phase_scale_path(ds, runtime_h)
     timed = []
@@ -3625,8 +3898,11 @@ def main() -> int:
                                 "flhc loop")),
                     ("kd_softmax_kl_fwd", packed_counts),
                     ("kd_softmax_kl_bwd", packed_counts),
+                    ("kd_softmax_kl_fwd", mesh_counts),
+                    ("kd_softmax_kl_bwd", mesh_counts),
                     ("kmeans_assign", merge_counts),
                     ("kmeans_assign", packed_counts),
+                    ("kmeans_assign", mesh_counts),
                     ("fused_merge", runtime_counts["fedsikd loop runtime"]),
                     ("fused_merge", runtime_counts["fedavg loop runtime"]),
                     ("kmeans_assign", runtime_counts["fedsikd loop runtime"]),

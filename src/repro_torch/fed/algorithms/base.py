@@ -51,8 +51,8 @@ from repro_torch import rng
 from repro_torch.core import aggregation as agg
 from repro_torch.data.pipeline import ClientShard
 from repro_torch.fed.lifecycle import ClientLifecycle, LifecycleEvent
-from repro_torch.fed.schedule import (RoundPlan, RoundScheduler,
-                                     fed_mesh_layout)
+from repro_torch.fed.schedule import RoundPlan, RoundScheduler
+from repro_torch.launch.mesh import fed_mesh_layout
 
 
 class Algorithm:

@@ -174,7 +174,13 @@ class PackedBaseline(_BaselineBase):
     ``aggregation.fold_partials`` sums the per-wave partials into the
     cohort mean.  Semi-async rounds split the staleness merge over raw
     example counts (``packed_async_row``): straggling lanes weigh 0 and go
-    to the driver's buffer as copies, arrivals fold in on the host."""
+    to the driver's buffer as copies, arrivals fold in on the host.
+
+    Under a ``torch.distributed`` process group the slots spread over a
+    client mesh of ranks (``sharded.make_client_mesh``): each rank trains
+    its block of every wave's slots, the global params stay replicated on
+    every rank, and a straggler's params come from the rank that holds its
+    lane."""
 
     engine = "sharded"
 
@@ -191,6 +197,11 @@ class PackedBaseline(_BaselineBase):
     def _setup_engine(self):
         cfg, store = self.cfg, self.shards
         self.S = self.scheduler.wave_slots
+        self.mesh = sh.make_client_mesh(self.scheduler.n_devices,
+                                        pack=self.scheduler.pack,
+                                        device=self.device)
+        self.n_local = (self.S if self.mesh is None
+                        else self.S // self.mesh.size())
         # static per-client step budgets and the one-off (R, steps, B, ...)
         # host staging of the BASE pool (virtual clients alias base rows
         # through ``row_of``): the loop engine's batch sequences
@@ -203,16 +214,20 @@ class PackedBaseline(_BaselineBase):
         self.round_fn = sh.make_packed_baseline_round(
             self.t_fwd, self.opt,
             prox_mu=cfg.prox_mu if self.is_prox else 0.0,
-            lane_dropout=make_lane_dropout(self.ds.name, student=False))
+            lane_dropout=make_lane_dropout(self.ds.name, student=False),
+            mesh=self.mesh)
         self.stager = sh.WaveStager(self.x_all, self.y_all,
                                     device=self.device,
                                     row_maps=(store.row_of, store.row_of),
-                                    capacity=self.scheduler.n_waves + 1)
+                                    capacity=self.scheduler.n_waves + 1,
+                                    mesh=self.mesh)
 
     def _prep(self, global_p):
-        """The round-start global params on every slot, and a fresh stacked
-        Adam state (the loop engine's per-client ``opt.init``)."""
-        p_s = {k: v.expand((self.S,) + v.shape) for k, v in global_p.items()}
+        """The round-start global params on every slot (of this rank's
+        block on a mesh), and a fresh stacked Adam state (the loop engine's
+        per-client ``opt.init``)."""
+        p_s = {k: v.expand((self.n_local,) + v.shape)
+               for k, v in global_p.items()}
         return p_s, sh.stacked_opt_init(self.opt, p_s)
 
     @staticmethod
@@ -288,7 +303,8 @@ class PackedBaseline(_BaselineBase):
                     self.buffer.push(AsyncUpdate(
                         client=c, birth=rnd, arrival=rnd + int(wp.delays[t]),
                         weight=float(self.sizes[c]),
-                        params=sh.take_rows(p_local, int(t))))
+                        params=sh.take_rows(p_local, int(t),
+                                            mesh=self.mesh)))
         if len(losses) == 1:
             loss = losses[0][0]
         else:

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import convert, perf, rng
 from repro_torch.core import aggregation as agg
+from repro_torch.core import cluster_collectives as cc
 from repro_torch.core import kmeans, stats
 from repro_torch.data.pipeline import ClientStore
 from repro_torch.fed import schedule
@@ -60,6 +61,8 @@ from repro_torch.fed.algorithms.base import (Algorithm, cluster_epochs,
                                              staleness_merge, tree_copy)
 from repro_torch.fed.client import evaluate, make_steps
 from repro_torch.fed.driver import AsyncUpdate
+from repro_torch.launch.mesh import from_rank0
+from repro_torch.launch.shardings import local_block
 from repro_torch.models.cnn import make_lane_dropout, make_model
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_map
@@ -125,20 +128,34 @@ class _ClusteredKDBase(Algorithm):
             # 100k universe builds no 100k-row feature matrix
             stat_roster = (roster if cfg.universe is None
                            else np.arange(shards.n_base))
-            raw = stat_features(shards, cfg, stat_roster, device=self.device)
-            self._feat_mu, self._feat_sd = stats.standardize_params(raw)
-            feats = stats.apply_standardize(raw, self._feat_mu, self._feat_sd)
-            if cfg.num_clusters is None:
-                k, _ = kmeans.select_k(self._stats_seed, feats, *cfg.k_range)
-            else:
-                k = cfg.num_clusters
-            res = kmeans.kmeans(self._stats_seed, feats, k)
-            lab = res.assignments.cpu().numpy().astype(np.int64)
+
+            def cluster():
+                raw = stat_features(shards, cfg, stat_roster,
+                                    device=self.device)
+                mu, sd = stats.standardize_params(raw)
+                feats = stats.apply_standardize(raw, mu, sd)
+                if cfg.num_clusters is None:
+                    k, _ = kmeans.select_k(self._stats_seed, feats,
+                                           *cfg.k_range)
+                else:
+                    k = cfg.num_clusters
+                res = kmeans.kmeans(self._stats_seed, feats, k)
+                return (mu.cpu().numpy(), sd.cpu().numpy(),
+                        res.centroids.cpu().numpy(),
+                        res.assignments.cpu().numpy())
+
+            # under a process group rank 0 clusters and every rank gets its
+            # result: the statistics' segment sums are not bit-stable on the
+            # card, and ranks must agree on the labels
+            mu, sd, cent, lab = from_rank0(cluster)
+            self._feat_mu = torch.as_tensor(mu, device=self.device)
+            self._feat_sd = torch.as_tensor(sd, device=self.device)
+            lab = lab.astype(np.int64)
             occ = np.unique(lab)
             # compact to the OCCUPIED clusters: one teacher per occupied
             # cluster, K fixed for the rest of the run
             self.K0 = len(occ)
-            self.centroids = res.centroids.cpu().numpy()[occ]
+            self.centroids = cent[occ]
             lab = np.searchsorted(occ, lab)
             if cfg.universe is not None:
                 lab = lab[shards.row_of[roster]]
@@ -188,12 +205,19 @@ class _ClusteredKDBase(Algorithm):
         roster = np.flatnonzero(event.active)
         migrate = np.arange(self.K0)
         if cfg.algorithm == "fedsikd":
-            raw = stat_features(self.shards, cfg, roster, device=self.device)
-            feats = stats.apply_standardize(raw, self._feat_mu, self._feat_sd)
-            res = kmeans.kmeans_warm(
-                feats, torch.as_tensor(self.centroids, device=self.device))
-            new_cent = res.centroids.cpu().numpy()
-            lab = res.assignments.cpu().numpy().astype(np.int64)
+            def recluster():
+                raw = stat_features(self.shards, cfg, roster,
+                                    device=self.device)
+                feats = stats.apply_standardize(raw, self._feat_mu,
+                                                self._feat_sd)
+                res = kmeans.kmeans_warm(
+                    feats, torch.as_tensor(self.centroids,
+                                           device=self.device))
+                return (res.centroids.cpu().numpy(),
+                        res.assignments.cpu().numpy())
+
+            new_cent, lab = from_rank0(recluster)       # as in setup
+            lab = lab.astype(np.int64)
             # teacher migration: cluster j starts from the teacher of the
             # nearest previously OCCUPIED centroid (itself, for clusters
             # that merely drifted)
@@ -407,12 +431,17 @@ class ShardedClusteredKD(_ClusteredKDBase):
     to the driver's buffer as copies (``sharded.take_rows``), and arrivals
     are folded in on the host with ``aggregation.add_scaled``.
 
-    On one card every slot lives on the one device: ``pack`` and
-    ``n_devices`` set only the slot count and numbering.  The slot count is
-    pinned for the run (``Algorithm.forced_devices``), so a lifecycle join
-    never changes a shape.  ``donate`` has no effect: the slot tensors are
-    rebuilt from the canonical state every wave, as in JAX, and nothing is
-    updated in place."""
+    In one process every slot lives on the one device: ``pack`` and
+    ``n_devices`` set only the slot count and numbering.  Under a
+    ``torch.distributed`` process group the slots spread over a client mesh
+    of ranks (``sharded.make_client_mesh``): each rank holds a block of
+    every wave's slots, the canonical state stays replicated on every rank,
+    and the scatter reads each cluster's refreshed teacher (and a
+    straggler's student) from the rank that holds its slot.  The slot count
+    is pinned for the run (``Algorithm.forced_devices``), so a lifecycle
+    join never changes a shape.  ``donate`` has no effect: the slot tensors
+    are rebuilt from the canonical state every wave, as in JAX, and
+    nothing is updated in place."""
 
     engine = "sharded"
 
@@ -429,6 +458,11 @@ class ShardedClusteredKD(_ClusteredKDBase):
                 "at once; wave-scheduled rounds require "
                 "teacher_data='leader'")
         self.S = self.scheduler.wave_slots
+        self.mesh = sh.make_client_mesh(self.scheduler.n_devices,
+                                        pack=self.scheduler.pack,
+                                        device=self.device)
+        self.n_local = (self.S if self.mesh is None
+                        else self.S // self.mesh.size())
         self.K = self.K0
         t_fwd, s_fwd = self.t_model[1], self.s_model[1]
         self.tp_k = self._init_teacher_stack()
@@ -458,7 +492,8 @@ class ShardedClusteredKD(_ClusteredKDBase):
             t_fwd, s_fwd, self.opt, self.s_opt,
             kd_temperature=cfg.kd_temperature, kd_alpha=cfg.kd_alpha,
             kd_impl=cfg.kd_impl, t_dropout=self.t_dropout,
-            s_dropout=make_lane_dropout(self.ds.name, student=True))
+            s_dropout=make_lane_dropout(self.ds.name, student=True),
+            mesh=self.mesh)
         self._x_test = torch.from_numpy(self.ds.x_test).to(self.device)
         self._y_test = torch.from_numpy(self.ds.y_test).to(self.device)
 
@@ -494,7 +529,7 @@ class ShardedClusteredKD(_ClusteredKDBase):
             self.tx_all, self.ty_all, self.sx_all, self.sy_all,
             device=self.device,
             row_maps=(self._t_map, self._t_map, store.row_of, store.row_of),
-            capacity=self.scheduler.n_waves + 1)
+            capacity=self.scheduler.n_waves + 1, mesh=self.mesh)
 
     def _post_lifecycle(self):
         self._restage_teacher_feed()
@@ -514,41 +549,44 @@ class ShardedClusteredKD(_ClusteredKDBase):
         return np.where(plan.active, self.cluster_ids[comp], 0)
 
     def _prep(self, tp_k, ts_k, sp_global, plan):
-        """The (S, ...) slot state of one wave: each slot's teacher and its
-        Adam state gathered from the (K, ...) stacks, the global student on
-        every slot and a fresh student Adam state (the loop engine's
-        per-client ``opt.init``)."""
-        idx = torch.as_tensor(self._teacher_row(plan), device=self.device)
+        """The slot state of one wave (this rank's block of it on a mesh):
+        each slot's teacher and its Adam state gathered from the (K, ...)
+        stacks, the global student on every slot and a fresh student Adam
+        state (the loop engine's per-client ``opt.init``)."""
+        idx = torch.as_tensor(local_block(self._teacher_row(plan), self.mesh),
+                              device=self.device)
         tp_s = tree_map(lambda a: a[idx], tp_k)
         ts_s = tree_map(lambda a: a[idx], ts_k)
-        sp_s = tree_map(lambda a: a.expand((self.S,) + a.shape), sp_global)
+        sp_s = tree_map(lambda a: a.expand((self.n_local,) + a.shape),
+                        sp_global)
         return tp_s, ts_s, sp_s, sh.stacked_opt_init(self.s_opt, sp_s)
 
     def _scatter_src(self, plan):
         """Scatter operands for ``_scatter``: which teacher rows the wave
         refreshed (``refreshed``, (K,) bool) and the first active slot
-        sourcing each (``safe``, (K,) int; untouched rows read slot 0 but
-        are masked out)."""
+        sourcing each (``safe``, (K,) host ints, global slot ids; untouched
+        rows read slot 0 but are masked out)."""
         row = self._teacher_row(plan)
         src = np.full(self.K, -1, np.int64)
         for s in range(self.S - 1, -1, -1):
             if plan.slot_client[s] >= 0:
                 src[row[s]] = s
         refreshed = src >= 0
-        safe = np.where(refreshed, src, 0)
         return (torch.as_tensor(refreshed, device=self.device),
-                torch.as_tensor(safe, device=self.device))
+                np.where(refreshed, src, 0))
 
     def _scatter(self, tp_s, ts_s, plan, tp_k, ts_k):
         """``tp_k``/``ts_k`` with the wave's refreshed teacher rows written
-        in (new stacks; the inputs are not changed)."""
+        in (new stacks; the inputs are not changed).  On a mesh the source
+        slots' rows come from the ranks that hold them."""
         refreshed, safe = self._scatter_src(plan)
+        rows = cc.gather_slots((tp_s, ts_s), safe, mesh=self.mesh)
 
         def upd(new, old):
             mask = refreshed.reshape((self.K,) + (1,) * (old.dim() - 1))
-            return torch.where(mask, new[safe], old)
+            return torch.where(mask, new, old)
 
-        return tree_map(upd, tp_s, tp_k), tree_map(upd, ts_s, ts_k)
+        return (tree_map(upd, rows[0], tp_k), tree_map(upd, rows[1], ts_k))
 
     def _student_keys(self, salt: int, plan) -> np.ndarray:
         """Per-slot student seeds, folded by client id (stable under slot
@@ -579,7 +617,8 @@ class ShardedClusteredKD(_ClusteredKDBase):
             seed=cfg.seed)
         planw = self.scheduler.warmup_plan()
         warm = sh.make_packed_teacher_phase(self.t_model[1], self.opt,
-                                            lane_dropout=self.t_dropout)
+                                            lane_dropout=self.t_dropout,
+                                            mesh=self.mesh)
         tp0, ts0 = self.tp_k, self.ts_k
         tp_acc, ts_acc = tp0, ts0
         wl = None
@@ -589,7 +628,8 @@ class ShardedClusteredKD(_ClusteredKDBase):
                 continue
             tp_s, ts_s, _, _ = self._prep(tp0, ts0, self.sp_global, wp)
             wx, wy = sh.stage_on_slots(wp, wx_all, wy_all, device=self.device,
-                                       row_maps=(self._t_map, self._t_map))
+                                       row_maps=(self._t_map, self._t_map),
+                                       mesh=self.mesh)
             tp_s, ts_s, wl = warm(tp_s, ts_s, wx, wy,
                                   wp.steps_for(w_steps_all),
                                   self._teacher_keys(9001, wp),
@@ -680,7 +720,8 @@ class ShardedClusteredKD(_ClusteredKDBase):
                         client=int(wp.slot_client[t]), birth=rnd,
                         arrival=rnd + int(wp.delays[t]),
                         weight=float(wp.slot_weight[t]),
-                        params=sh.take_rows(sp_local, int(t))))
+                        params=sh.take_rows(sp_local, int(t),
+                                            mesh=self.mesh)))
         self.tp_k, self.ts_k = tp_acc, ts_acc
         t_loss, s_loss = _fold_losses(losses)
         # one wave: its aggregate IS the cohort mean, untouched

@@ -39,6 +39,13 @@ It owns, for every algorithm:
   strategies add ``stage``, ``compute`` and ``aggregate``) and one
   ``perf.end_round()`` a round.
 
+Under a ``torch.distributed`` process group (the packed engine's client
+mesh, ``launch.mesh``) every rank runs the driver: what it draws from
+device results is computed on rank 0 and broadcast (the eval metrics here,
+the strategies' clustering), a round's ``round_seconds`` is its slowest
+rank's, so every rank returns the same history; only rank 0 prints
+progress and writes checkpoints, and every rank resumes from them.
+
 The checkpoint holds what the JAX package's holds, under the same keys and
 in its layouts (``repro_torch.convert``), and the fingerprint has the same
 keys and values, so a run of either package resumes the other's
@@ -56,6 +63,7 @@ from repro_torch import convert, guards, perf
 from repro_torch.data.pipeline import ClientStore, make_client_shards
 from repro_torch.fed import fedstate
 from repro_torch.fed.lifecycle import ClientLifecycle
+from repro_torch.launch.mesh import from_rank0, is_rank0, max_over_ranks
 
 # History keys the driver appends itself (or that are not one entry a
 # round); every other list-valued key is a per-round metric kept
@@ -194,7 +202,8 @@ class RoundDriver:
     def __init__(self, ds, cfg, algorithm, *, device, progress: bool = False):
         self.ds, self.cfg, self.alg = ds, cfg, algorithm
         self.device = device
-        self.progress = progress
+        self.rank0 = is_rank0()
+        self.progress = progress and self.rank0
         self.buffer: StalenessBuffer | None = None
         self.writer: fedstate.AsyncCheckpointWriter | None = None
 
@@ -234,10 +243,11 @@ class RoundDriver:
             for rnd in range(1, start_round + 1):
                 history["participants"].append(cfg.num_clients)
                 self._record(history, rnd)
-                history["round_seconds"].append(time.perf_counter() - t_setup)
+                history["round_seconds"].append(max_over_ranks(
+                    time.perf_counter() - t_setup, self.device))
                 self._save(history, fp, rnd)
 
-        if cfg.ckpt_dir and cfg.async_ckpt:
+        if cfg.ckpt_dir and cfg.async_ckpt and self.rank0:
             self.writer = fedstate.AsyncCheckpointWriter(
                 cfg.ckpt_dir, keep_last=cfg.ckpt_keep)
         # Runtime guards (``guards.py``).  The first rounds are warm-in:
@@ -301,7 +311,8 @@ class RoundDriver:
                     history["participants"].append(int(plan.active.sum()))
                 with perf.span("eval"):
                     self._record(history, rnd)
-                history["round_seconds"].append(time.perf_counter() - t0)
+                history["round_seconds"].append(max_over_ranks(
+                    time.perf_counter() - t0, self.device))
                 with perf.span("checkpoint"):
                     self._save(history, fp, rnd)
                 perf.end_round()
@@ -369,7 +380,7 @@ class RoundDriver:
             lst.append(metrics.get(k))
 
     def _record(self, history, rnd):
-        acc, loss = self.alg.eval()
+        acc, loss = from_rank0(self.alg.eval)
         history["acc"].append(acc)
         history["loss"].append(loss)
         history["round"].append(rnd)
@@ -379,7 +390,8 @@ class RoundDriver:
 
     def _save(self, history, fp, rnd):
         cfg = self.cfg
-        if cfg.ckpt_dir and (rnd % cfg.ckpt_every == 0 or rnd == cfg.rounds):
+        if cfg.ckpt_dir and self.rank0 and (rnd % cfg.ckpt_every == 0
+                                            or rnd == cfg.rounds):
             arrays = self.alg.checkpoint_arrays()
             buffer_meta = []
             if self.buffer is not None:

@@ -12,6 +12,12 @@ the runtime knobs the JAX package runs on them: DP-noised statistics
 (``ckpt_dir``, ``resume``, ``async_ckpt``); the packed engine also runs
 wave-scheduled rounds (``n_devices``, ``waves``), a virtual client
 universe (``universe``) and the runtime guards (``guards``).
+
+Under a ``torch.distributed`` process group that the caller has set up
+(``torchrun`` with NCCL on cards, ``init_process_group`` with gloo on the
+CPU), the packed engine spreads each wave's slots over the ranks, a
+contiguous block each (``launch.mesh``, ``fed/sharded.py``): every rank
+calls ``run_federated`` with its own device and gets the same history.
 """
 from __future__ import annotations
 
@@ -361,13 +367,20 @@ def run_federated(ds: Dataset, cfg: FedConfig, *, device="cuda",
     """Runs ``cfg.rounds`` federated rounds on ``device``; returns per-round
     test metrics in the history schema of ``repro.fed.rounds.run_federated``.
     A packed run (``engine="sharded"``) uses cuDNN's deterministic
-    algorithms (``deterministic_cudnn``).
+    algorithms (``deterministic_cudnn``).  Under a process group each rank
+    passes its own ``device`` (``cuda:LOCAL_RANK``, or ``cpu``), which is
+    the current CUDA device for the run, and holds a block of the packed
+    engine's slots.
     """
     dev = resolve_device(device)
     from repro_torch.fed.algorithms import make_algorithm
     from repro_torch.fed.driver import RoundDriver
+    from repro_torch.launch.mesh import distributed
     packed = cfg.engine == "sharded"
-    with deterministic_cudnn() if packed else contextlib.nullcontext():
+    on_card = (torch.cuda.device(dev) if dev.type == "cuda" and distributed()
+               else contextlib.nullcontext())
+    with on_card, deterministic_cudnn() if packed else \
+            contextlib.nullcontext():
         return RoundDriver(ds, cfg, make_algorithm(cfg), device=dev,
                            progress=progress).run()
 

@@ -88,18 +88,18 @@ stream; the regression test asserts pairwise disjointness of all six
 streams across an adversarial (seed, round, client) grid, including
 values that equal the salts themselves.
 
-A copy of ``repro.fed.schedule`` with ``fed_mesh_layout`` and
-``fed_wave_layout`` inlined: plans
-must match the JAX package's bit for bit, so both engines train the same
-clients with the same weights.
+A copy of ``repro.fed.schedule``, its slot layouts from ``launch.mesh``
+as JAX's are: plans must match the JAX package's bit for bit, so both
+engines train the same clients with the same weights.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Sequence
 
 import numpy as np
+
+from repro_torch.launch.mesh import fed_mesh_layout, fed_wave_layout  # noqa: F401
 
 PARTICIPATION_MODES = ("full", "uniform", "stratified")
 WEIGHTINGS = ("uniform", "size")
@@ -113,56 +113,6 @@ SALT_LEAVE = 0x1F          # owned by fed/lifecycle.py
 SALT_SPEED = 0x5E
 SALT_WARMUP = 0xA0
 SALT_BATCH = 0xB0          # owned by data/pipeline.py (per-epoch batch order)
-
-
-def fed_mesh_layout(n_participants: int, *, pack: int = 1,
-                    n_devices: int | None = None) -> tuple[int, int]:
-    """Client-packed layout: ``(n_devices, n_slots)`` hosting
-    ``n_participants`` clients with ``pack`` lanes a device, ``n_slots =
-    n_devices * pack``.  A copy of ``repro.launch.mesh.fed_mesh_layout``;
-    on one card the device count only numbers the slots."""
-    if pack < 1:
-        raise ValueError(f"pack must be >= 1, got {pack}")
-    if n_devices is None:
-        n_devices = math.ceil(n_participants / pack)
-    if n_devices * pack < n_participants:
-        raise ValueError(
-            f"{n_devices} devices x pack={pack} = {n_devices * pack} slots "
-            f"cannot host {n_participants} participants")
-    return n_devices, n_devices * pack
-
-
-def fed_wave_layout(n_participants: int, *, pack: int = 1,
-                    n_devices: int | None = None,
-                    waves: int | None = None) -> tuple[int, int, int]:
-    """Wave-scheduled layout: ``(n_devices, wave_slots, n_waves)`` hosting
-    ``n_participants`` clients by streaming them through a FIXED mesh of
-    ``wave_slots = n_devices * pack`` slots in ``n_waves`` passes.
-
-    A copy of ``repro.launch.mesh.fed_wave_layout`` (pure arithmetic; the
-    JAX module also builds device meshes, so the port keeps its own copy).
-    Defaults reproduce the single-wave layout: with ``n_devices=None`` and
-    ``waves=None`` the mesh is sized for the whole cohort, ``n_waves == 1``.
-    """
-    if pack < 1:
-        raise ValueError(f"pack must be >= 1, got {pack}")
-    if waves is not None and waves < 1:
-        raise ValueError(f"waves must be >= 1, got {waves}")
-    if n_devices is not None and n_devices < 1:
-        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
-    if n_devices is None:
-        per_wave = (n_participants if waves is None
-                    else math.ceil(n_participants / waves))
-        n_devices = max(1, math.ceil(per_wave / pack))
-    wave_slots = n_devices * pack
-    if waves is None:
-        waves = max(1, math.ceil(n_participants / wave_slots))
-    if wave_slots * waves < n_participants:
-        raise ValueError(
-            f"{waves} waves x {n_devices} devices x pack={pack} = "
-            f"{wave_slots * waves} lanes cannot host {n_participants} "
-            "participants")
-    return n_devices, wave_slots, waves
 
 
 # --------------------------------------------------------------- round plan

@@ -1,11 +1,12 @@
-"""Client-packed federated runtime on one card: the port of
-``repro.fed.sharded`` (the FedSiKD round programs, the FedAvg/FedProx round
-program and the staging helpers the packed strategies call).
+"""Client-packed federated runtime: the port of ``repro.fed.sharded`` (the
+FedSiKD round programs, the FedAvg/FedProx round program, the client mesh
+and the staging helpers the packed strategies call).
 
 The JAX package hosts ``C = devices x pack`` client lanes on a device mesh
-and ``vmap``s each local step over the lanes inside ``shard_map``.  On one
-card every slot lives in one ``(S, ...)`` stack per parameter leaf and the
-lane axis is a batch axis written out:
+and ``vmap``s each local step over the lanes inside ``shard_map``.  The
+port holds a rank's slots in one ``(S / W, ...)`` stack per parameter leaf
+(every slot, ``(S, ...)``, with no process group) and the lane axis is a
+batch axis written out:
 
 - the forward of all lanes is ``torch.func.vmap(functional_call(...))``
   over the stacked params (the convolutions become grouped convolutions);
@@ -28,6 +29,18 @@ A round's cohort may span several waves of ``S`` slots (``RoundPlan.wave``);
 every wave runs the same fixed-shape program, and ``WaveStager`` stages
 wave ``w + 1``'s data while wave ``w`` computes.
 
+The client mesh (``make_client_mesh``: one rank a process of the caller's
+``torch.distributed`` group) places slots only: rank ``r`` of ``W`` holds
+the contiguous block ``[r S / W, (r + 1) S / W)`` and stages only its
+block; the round programs take the plan's full ``(S,)`` budgets, seeds and
+operators and cut the rank's block themselves.  Every rank runs the wave's
+longest budget over ALL slots (its lanes past budget frozen), so the ranks
+stay in step and each launches the KD kernels as one card would; the
+teacher sync and the aggregation all-gather the blocks
+(``core.cluster_collectives``), and the loss means all-reduce their sums.
+With no process group the mesh is ``None`` and every program computes
+exactly what it computed before the mesh existed.
+
 Step budgets (``n_steps``) are host numpy arrays, as the strategies build
 them; random streams are integer seeds (``repro_torch.rng``) read only by
 models with dropout (HAR), whose per-lane keep masks are drawn outside the
@@ -45,6 +58,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
 from repro_torch import guards, perf, rng
@@ -52,8 +66,24 @@ from repro_torch.core import cluster_collectives as cc
 from repro_torch.core.distill import distillation_loss, softmax_cross_entropy
 from repro_torch.fed.schedule import RoundPlan
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import distributed, make_fed_client_mesh
+from repro_torch.launch.shardings import local_block
 from repro_torch.optim import Optimizer, apply_updates, fedprox_penalty
 from repro_torch.tree import tree_map
+
+
+# ------------------------------------------------------------ client mesh
+def make_client_mesh(n_devices: int, *, pack: int = 1, device):
+    """The client mesh that hosts ``n_devices x pack`` slots over the
+    process group the caller has set up (``launch.mesh.
+    make_fed_client_mesh``: a ``ValueError`` names a world that does not
+    divide the slots), or ``None`` without one: the engine then keeps
+    every slot in this process."""
+    if not distributed():
+        return None
+    return make_fed_client_mesh(n_devices * pack, pack=pack,
+                                n_devices=n_devices,
+                                device_type=torch.device(device).type)
 
 
 # ------------------------------------------------------------ data staging
@@ -87,9 +117,11 @@ def client_step_counts(shards, batch_size: int, epochs: int) -> np.ndarray:
                        for sh in shards], np.int32)
 
 
-def stage_on_slots(plan: RoundPlan, *arrays, device, row_maps=None):
+def stage_on_slots(plan: RoundPlan, *arrays, device, row_maps=None,
+                   mesh=None):
     """Row-gather this round's participants onto slots and copy the (S, ...)
-    stacks to ``device`` (idle slots carry row 0; they run zero steps).
+    stacks to ``device`` (idle slots carry row 0; they run zero steps); on
+    a client ``mesh``, this rank's block of slots only.
 
     The gather stays on the host (``arrays`` are the (C, ...) numpy stacks
     built once by ``stack_client_data``): for a CUDA device it writes
@@ -98,7 +130,7 @@ def stage_on_slots(plan: RoundPlan, *arrays, device, row_maps=None):
     = identity) translates the plan's client ids into each array's row space
     (the KD teacher feed maps a slot to its cluster leader's rows)."""
     device = torch.device(device)
-    cid = np.where(plan.active, plan.slot_client, 0)
+    cid = local_block(np.where(plan.active, plan.slot_client, 0), mesh)
     maps = (None,) * len(arrays) if row_maps is None else row_maps
     out = []
     for a, m in zip(arrays, maps):
@@ -143,11 +175,12 @@ class WaveStager:
     residual join wait (``stage_wait``); a cold or mispredicted wave records
     its whole synchronous gather as ``stage_wait``.  The ``wave-stage``,
     ``wave-prefetch`` and ``wave-evict`` jitter points let the race harness
-    stretch each handoff."""
+    stretch each handoff.  On a client ``mesh`` each rank stages its own
+    block of slots, with its own prefetch thread."""
 
     def __init__(self, *arrays, device, row_maps: Optional[Sequence] = None,
-                 capacity: int = 2):
-        self.arrays, self.row_maps = arrays, row_maps
+                 capacity: int = 2, mesh=None):
+        self.arrays, self.row_maps, self.mesh = arrays, row_maps, mesh
         self.device = torch.device(device)
         self.capacity = max(2, int(capacity))
         self._staged: dict[bytes, tuple] = {}     # insertion-ordered LRU
@@ -157,7 +190,7 @@ class WaveStager:
 
     def _gather(self, plan: RoundPlan):
         return stage_on_slots(plan, *self.arrays, device=self.device,
-                              row_maps=self.row_maps)
+                              row_maps=self.row_maps, mesh=self.mesh)
 
     def _put(self, key: bytes, staged) -> None:
         self._staged[key] = staged
@@ -249,11 +282,14 @@ def slot_cluster_keys(base: int, plan: RoundPlan) -> np.ndarray:
     return np.asarray([rng.fold_seed(base, int(k)) for k in kidx], np.int64)
 
 
-def take_rows(tree: dict, idx: int) -> dict:
-    """Lane ``idx`` of every (S, ...) leaf as a COPY: a straggler's update
-    waits in the staleness buffer for rounds, and a view would pin the
-    whole slot stack (S times the memory) and share storage with it."""
-    return {k: v[idx].clone() for k, v in tree.items()}
+def take_rows(tree: dict, idx: int, *, mesh=None) -> dict:
+    """Lane ``idx`` (a global slot id) of every slot stack as a COPY, on
+    every rank: a straggler's update waits in the staleness buffer for
+    rounds, and a view would pin the whole slot stack (S times the memory)
+    and share storage with it.  On a client ``mesh`` the rank that holds
+    the lane sends it (``cluster_collectives.gather_slots``)."""
+    rows = cc.gather_slots(tree, [idx], mesh=mesh)
+    return {k: v[0].clone() for k, v in rows.items()}
 
 
 # ------------------------------------------------------------ lane helpers
@@ -303,18 +339,22 @@ def _grad_update(opt: Optimizer, params, opt_state, loss_fn):
         return apply_updates(params, updates), opt_state, loss.detach()
 
 
-def _masked_scan_steps(step_fn, carry, xs, ys, n_steps: np.ndarray):
+def _masked_scan_steps(step_fn, carry, xs, ys, n_steps: np.ndarray,
+                       mesh=None):
     """Run ``step_fn(carry, x, y, i) -> (carry, (S,) loss)`` over the step
     axis of ``xs`` (S, T, B, ...), freezing each lane once its budget
-    ``n_steps`` (host (S,) ints) is spent: shorter clients stop early and
-    idle slots (``n_steps == 0``) never move, exactly as in the sequential
-    loop engine.  Returns the carry and each lane's mean loss over its real
-    steps, both on the device."""
+    ``n_steps`` (host (S,) ints over the plan's slots) is spent: shorter
+    clients stop early and idle slots (``n_steps == 0``) never move,
+    exactly as in the sequential loop engine.  On a client ``mesh`` the
+    carry and ``xs`` hold this rank's block, and every rank runs the
+    longest budget of all slots.  Returns the carry and each lane's mean
+    loss over its real steps, both on the device."""
     n_max = int(np.max(n_steps, initial=0))
     if n_max > xs.shape[1]:
         raise ValueError(f"step budget {n_max} exceeds the {xs.shape[1]} "
                          "staged steps")
-    n_dev = torch.as_tensor(np.asarray(n_steps), device=xs.device)
+    n_dev = torch.as_tensor(local_block(np.asarray(n_steps), mesh),
+                            device=xs.device)
     total = torch.zeros(xs.shape[0], dtype=torch.float32, device=xs.device)
     for i in range(n_max):
         new_carry, loss = step_fn(carry, xs[:, i], ys[:, i], i)
@@ -340,11 +380,17 @@ def _make_teacher_step(t_fwd: Callable, t_opt: Optimizer, seeds,
     return t_step
 
 
-def _active_mean(loss, n_steps: np.ndarray):
-    """Mean of per-lane losses over the ACTIVE slots."""
-    act = torch.as_tensor(np.asarray(n_steps) > 0, device=loss.device)
-    return (torch.where(act, loss, 0.0).sum()
-            / torch.clamp(act.sum().float(), min=1.0))
+def _active_mean(loss, n_steps: np.ndarray, mesh=None):
+    """Mean of per-lane losses over the ACTIVE slots (of the whole mesh:
+    the numerator and the denominator are summed over the ranks)."""
+    act = torch.as_tensor(local_block(np.asarray(n_steps) > 0, mesh),
+                          device=loss.device)
+    num, den = torch.where(act, loss, 0.0).sum(), act.sum().float()
+    if mesh is not None:
+        both = torch.stack([num, den])
+        dist.all_reduce(both, group=mesh.get_group())
+        num, den = both
+    return num / torch.clamp(den, min=1.0)
 
 
 def _operator(table, device):
@@ -354,7 +400,7 @@ def _operator(table, device):
 
 # ----------------------------------------- FedSiKD packed KD round engine
 def make_packed_teacher_phase(t_fwd: Callable, t_opt: Optimizer, *,
-                              lane_dropout=None):
+                              lane_dropout=None, mesh=None):
     """Teacher-only phase over the slot stack: CE steps on every slot's
     teacher feed, then intra-cluster teacher sync with the plan's (S, S)
     operator.  Used for Alg. 1's KD-establishment warm-up.
@@ -362,15 +408,19 @@ def make_packed_teacher_phase(t_fwd: Callable, t_opt: Optimizer, *,
     Returns phase(tp, ts, xs, ys, n_steps, rng, sync_mat) -> (tp, ts,
     teacher_loss): ``tp``/``ts`` are (S, ...) params and Adam state, ``xs``
     / ``ys`` (S, T, B, ...) device batches, ``n_steps`` and ``rng`` (S,) host
-    budgets and integer seeds, ``sync_mat`` the (S, S) operator."""
+    budgets and integer seeds, ``sync_mat`` the (S, S) operator.  On a
+    client ``mesh`` the tensors hold this rank's block of slots, the host
+    arrays and the operator the plan's whole ones."""
 
     def phase(tp, ts, xs, ys, n_steps, rng_seeds, sync_mat):
-        step = _make_teacher_step(t_fwd, t_opt, rng_seeds, lane_dropout)
-        (tp, ts), loss = _masked_scan_steps(step, (tp, ts), xs, ys, n_steps)
+        step = _make_teacher_step(t_fwd, t_opt, local_block(rng_seeds, mesh),
+                                  lane_dropout)
+        (tp, ts), loss = _masked_scan_steps(step, (tp, ts), xs, ys, n_steps,
+                                            mesh)
         sync = _operator(sync_mat, xs.device)
-        tp = cc.packed_teacher_sync(tp, sync)
-        ts = cc.packed_teacher_sync(ts, sync)
-        return tp, ts, _active_mean(loss, n_steps)
+        tp = cc.packed_teacher_sync(tp, sync, mesh=mesh)
+        ts = cc.packed_teacher_sync(ts, sync, mesh=mesh)
+        return tp, ts, _active_mean(loss, n_steps, mesh)
 
     return phase
 
@@ -378,7 +428,7 @@ def make_packed_teacher_phase(t_fwd: Callable, t_opt: Optimizer, *,
 def make_packed_kd_round(t_fwd: Callable, s_fwd: Callable, t_opt: Optimizer,
                          s_opt: Optimizer, *, kd_temperature: float = 2.0,
                          kd_alpha: float = 0.5, kd_impl: str = "fused",
-                         t_dropout=None, s_dropout=None):
+                         t_dropout=None, s_dropout=None, mesh=None):
     """The full FedSiKD round (Alg. 1 lines 10-18) over the slot stack:
 
       1. teacher CE steps on each slot's teacher feed             (line 12)
@@ -398,7 +448,9 @@ def make_packed_kd_round(t_fwd: Callable, s_fwd: Callable, t_opt: Optimizer,
     scalars (means over the active slots).  ``t_n``/``s_n`` and
     ``t_rng``/``s_rng`` are (S,) host budgets and seeds; ``t_dropout`` /
     ``s_dropout`` are the models' ``make_lane_dropout`` (None without
-    dropout)."""
+    dropout).  On a client ``mesh`` the params, state and batches hold this
+    rank's block of slots, the host arrays and operators the plan's whole
+    ones."""
     if kd_impl not in ("fused", "reference"):
         raise ValueError(
             f"kd_impl must be 'fused' or 'reference', got {kd_impl!r}")
@@ -414,37 +466,43 @@ def make_packed_kd_round(t_fwd: Callable, s_fwd: Callable, t_opt: Optimizer,
     def kd_round(tp, ts, sp, ss, tx, ty, t_n, sx, sy, s_n, t_rng, s_rng,
                  sync_mat, agg_row):
         # ---- 1-2: teacher refresh (per lane) + sync
-        t_step = _make_teacher_step(t_fwd, t_opt, t_rng, t_dropout)
-        (tp, ts), t_loss = _masked_scan_steps(t_step, (tp, ts), tx, ty, t_n)
+        t_step = _make_teacher_step(t_fwd, t_opt, local_block(t_rng, mesh),
+                                    t_dropout)
+        (tp, ts), t_loss = _masked_scan_steps(t_step, (tp, ts), tx, ty, t_n,
+                                              mesh)
         sync = _operator(sync_mat, tx.device)
-        tp = cc.packed_teacher_sync(tp, sync)
-        ts = cc.packed_teacher_sync(ts, sync)
+        tp = cc.packed_teacher_sync(tp, sync, mesh=mesh)
+        ts = cc.packed_teacher_sync(ts, sync, mesh=mesh)
+        s_seeds = local_block(s_rng, mesh)
 
         # ---- 3: student distillation against the synced cluster teacher
         def s_step(carry, x, y, i):
             p, s = carry
             with torch.no_grad():
                 t_logits = _lane_forward(t_fwd, tp, x, train=False)
-            keep = _lane_keep(s_dropout, s_rng, i, x.shape[1], x.device)
+            keep = _lane_keep(s_dropout, s_seeds, i, x.shape[1], x.device)
             p, s, loss = _grad_update(s_opt, p, s, lambda pg: kd_loss(
                 _lane_forward(s_fwd, pg, x, train=True, keep=keep),
                 t_logits, y))
             return (p, s), loss
 
-        (sp, ss), s_loss = _masked_scan_steps(s_step, (sp, ss), sx, sy, s_n)
+        (sp, ss), s_loss = _masked_scan_steps(s_step, (sp, ss), sx, sy, s_n,
+                                              mesh)
 
         # ---- 4: plan-weighted mean -> every slot
         sp_local = sp
-        sp = cc.packed_weighted_mean(sp, _operator(agg_row, sx.device))
-        return (tp, ts, sp, sp_local, ss, _active_mean(t_loss, t_n),
-                _active_mean(s_loss, s_n))
+        sp = cc.packed_weighted_mean(sp, _operator(agg_row, sx.device),
+                                     mesh=mesh)
+        return (tp, ts, sp, sp_local, ss, _active_mean(t_loss, t_n, mesh),
+                _active_mean(s_loss, s_n, mesh))
 
     return kd_round
 
 
 # -------------------------------------------- FedAvg/FedProx packed engine
 def make_packed_baseline_round(fwd: Callable, opt: Optimizer, *,
-                               prox_mu: float = 0.0, lane_dropout=None):
+                               prox_mu: float = 0.0, lane_dropout=None,
+                               mesh=None):
     """One FedAvg (``prox_mu=0``) or FedProx round over the slot stack:
 
       1. plain-CE local steps on every participating slot's batches, with
@@ -465,15 +523,18 @@ def make_packed_baseline_round(fwd: Callable, opt: Optimizer, *,
     and before aggregation, and ``train_loss`` is a device scalar (the mean
     over the active slots).  After the call every slot holds the aggregate.
     ``lane_dropout`` is the model's ``make_lane_dropout`` (None without
-    dropout)."""
+    dropout).  On a client ``mesh`` the params, state and batches hold
+    this rank's block of slots, the host arrays and the row the plan's
+    whole ones."""
     prox = vmap(lambda q, g: fedprox_penalty(q, g, prox_mu),
                 in_dims=(0, None))
 
     def baseline_round(p, s, xs, ys, n_steps, rng_seeds, agg_row, global_p):
+        seeds = local_block(rng_seeds, mesh)
+
         def step(carry, x, y, i):
             p, s = carry
-            keep = _lane_keep(lane_dropout, rng_seeds, i, x.shape[1],
-                              x.device)
+            keep = _lane_keep(lane_dropout, seeds, i, x.shape[1], x.device)
 
             def loss_fn(pg):
                 loss = vmap(softmax_cross_entropy)(
@@ -485,9 +546,11 @@ def make_packed_baseline_round(fwd: Callable, opt: Optimizer, *,
             p, s, loss = _grad_update(opt, p, s, loss_fn)
             return (p, s), loss
 
-        (p, s), loss = _masked_scan_steps(step, (p, s), xs, ys, n_steps)
+        (p, s), loss = _masked_scan_steps(step, (p, s), xs, ys, n_steps,
+                                          mesh)
         p_local = p
-        p = cc.packed_weighted_mean(p, _operator(agg_row, xs.device))
-        return p, p_local, s, _active_mean(loss, n_steps)
+        p = cc.packed_weighted_mean(p, _operator(agg_row, xs.device),
+                                    mesh=mesh)
+        return p, p_local, s, _active_mean(loss, n_steps, mesh)
 
     return baseline_round

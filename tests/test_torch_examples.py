@@ -6,10 +6,17 @@ clusters), its losses finite and its replicas equal after every ``sync``;
 ``fault_tolerance_torch.py`` (a run killed after 3 of 6 rounds and
 resumed, its history asserted bit-identical to an uninterrupted run) run
 whole too; every example parses ``--help`` and refuses a card that is not
-there (``--device`` defaults to ``cuda``).  ``chip_smoke.py`` runs the
-quickstart and ``llm_distill_torch.py`` on the card."""
+there (``--device`` defaults to ``cuda``).  ``sharded_collectives_torch.py``
+runs as a user runs it, a script spawning a gloo world of 4 CPU ranks:
+its four parts (the raw mesh operators, FedSiKD, packed FedSiKD with
+sampled participation, packed FedAvg) each print their results.
+``chip_smoke.py`` runs the quickstart and ``llm_distill_torch.py`` on the
+card."""
 import math
+import os
 import runpy
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -17,7 +24,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ["quickstart", "fedsikd_vs_baselines", "client_churn",
-            "async_stragglers", "fault_tolerance", "llm_distill", "serve"]
+            "async_stragglers", "fault_tolerance", "llm_distill", "serve",
+            "sharded_collectives"]
 
 
 def _main(name):
@@ -50,6 +58,20 @@ def test_fault_tolerance_resumes_bit_identically_on_the_cpu(capsys):
     h_full, h_res = _main("fault_tolerance")(["--device", "cpu"])
     assert h_res["acc"] == h_full["acc"] and len(h_full["acc"]) == 6
     assert "bit-identical" in capsys.readouterr().out
+
+
+def test_sharded_collectives_runs_on_four_cpu_ranks():
+    res = subprocess.run(
+        [sys.executable, "examples/sharded_collectives_torch.py",
+         "--device", "cpu", "--world", "4"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = res.stdout
+    assert "per-cluster means" in out and "two-level global mean" in out
+    assert out.count("accuracy curve") == 3
+    assert "on a mesh of 4 ranks" in out
+    assert "participants/round: [12, 12, 12]" in out
 
 
 @pytest.mark.parametrize("name", EXAMPLES)

@@ -39,7 +39,7 @@ def test_the_walk_sees_the_whole_port():
     assert "chip_smoke.py" in names
     for example in ("quickstart", "fedsikd_vs_baselines", "client_churn",
                     "async_stragglers", "fault_tolerance", "llm_distill",
-                    "serve"):
+                    "serve", "sharded_collectives"):
         assert f"examples/{example}_torch.py" in names
     assert "src/repro_torch/fed/rounds.py" in names
     assert "src/repro_torch/kernels/ops.py" in names
@@ -52,6 +52,7 @@ def test_the_walk_sees_the_whole_port():
                    "models/rwkv.py", "models/encdec.py",
                    "launch/steps.py", "launch/inputs.py",
                    "launch/roofline.py", "launch/dryrun.py",
-                   "launch/analysis.py", "kernels/flash_attention.py"):
+                   "launch/analysis.py", "launch/mesh.py",
+                   "launch/shardings.py", "kernels/flash_attention.py"):
         assert f"src/repro_torch/{module}" in names
     assert len(names) >= 36

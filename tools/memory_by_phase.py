@@ -23,9 +23,10 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 PHASES = ("phase_kernel_checks", "phase_fused_distill", "phase_main_path",
-          "phase_packed_path", "phase_baselines_path", "phase_runtime_path",
-          "phase_scale_path", "phase_lm_serve", "phase_lm_train",
-          "phase_lm_distill", "phase_dryrun", "phase_examples")
+          "phase_packed_path", "phase_baselines_path", "phase_mesh_path",
+          "phase_runtime_path", "phase_scale_path", "phase_lm_serve",
+          "phase_lm_train", "phase_lm_distill", "phase_dryrun",
+          "phase_examples")
 
 
 def _reporting(name, fn):
